@@ -1,0 +1,27 @@
+"""ku_torch: the port of ``ku`` to PyTorch and CUDA on an NVIDIA H100.
+
+So far it holds the RBM / DBN trainer (:mod:`ku_torch.ebm`), whose CD-k run
+is one launch of a hand-written Hopper kernel
+(:mod:`ku_torch.kernels.cd_gibbs`), the JSON config contract and seed
+streams (:mod:`ku_torch.core`), and the JSON+npz weight files shared with
+``ku`` (:mod:`ku_torch.utility`). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""
+
+from ku_torch.core import config as config
+from ku_torch.core import rng as rng
+
+from ku_torch.ebm.rbm import RBM, MODE_VISIBLE_BERNOULLI, MODE_VISIBLE_GAUSSIAN, MODE_COMPLEX
+from ku_torch.ebm.dbn import DBN
+
+from ku_torch.utility import (
+    save_model_jh5,
+    load_model_jh5,
+    params_from_numpy,
+    params_to_numpy,
+)
+
+from ku_torch import ebm as ebm
+from ku_torch import kernels as kernels
+
+__version__ = "0.1.0"

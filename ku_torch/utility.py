@@ -1,0 +1,87 @@
+"""Model persistence: JSON architecture + ``.npz`` weight archive.
+
+The same two-file format as ``ku/utility.py``: ``<name>.json`` holds the
+spec dict and ``<name>.npz`` the parameters of a nested dict, flattened to
+``/``-joined keys. Files written by either package load in the other.
+Parameters keep ``ku``'s names and layouts (``rbm_weight`` is (V, H)).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts (and lists/tuples, keyed by index) → ``{'a/b': array}``."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: _to_numpy(tree)}
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in items:
+        flat.update(_flatten(value, f"{prefix}/{key}" if prefix else str(key)))
+    return flat
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = np.asarray(value)
+    return tree
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A nested dict of numpy arrays (``ku``'s parameters) → the same dict
+    of torch tensors on ``device``, names, shapes and dtypes unchanged."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(torch.device(device))
+
+
+def params_to_numpy(tree):
+    """Inverse of :func:`params_from_numpy`: tensors → numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return _to_numpy(tree)
+
+
+def save_model_jh5(spec: Any, params, name: str) -> None:
+    """Save the spec → ``<name>.json`` and params → ``<name>.npz``."""
+    with open(name + ".json", "w") as f:
+        json.dump(spec, f, indent=2, default=str)
+    np.savez(name + ".npz", **_flatten(params))
+
+
+def load_model_jh5(name: str) -> Tuple[Any, Dict[str, Any]]:
+    """Load (spec, params) written by :func:`save_model_jh5` here or in
+    ``ku``; params come back as a nested dict of numpy arrays."""
+    with open(name + ".json") as f:
+        spec = json.load(f)
+    with np.load(name + ".npz") as data:
+        params = _unflatten({k: data[k] for k in data.files})
+    return spec, params
+
+
+def save_weights(params, path: str) -> None:
+    np.savez(path if path.endswith(".npz") else path + ".npz", **_flatten(params))
+
+
+def load_weights(path: str) -> Dict[str, Any]:
+    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+        return _unflatten({k: data[k] for k in data.files})
