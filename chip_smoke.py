@@ -1,4 +1,4 @@
-"""Drive ku_torch's main path on one NVIDIA GPU and check every step.
+"""Drive ku_torch's main paths on one NVIDIA GPU and check every step.
 
 Usage, from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit:
@@ -8,21 +8,57 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: CUDA must be present; print the card's name and power limit.
-2. Build: compile the CD kernel from ku_torch/csrc with nvcc.
-3. Kernel against its plain version on the card, same inputs:
+2. Build: compile the three kernels of ku_torch/csrc with nvcc, one process
+   per source, all started together; print their register and spill lines.
+3. CD kernel against its plain version on the card, same inputs:
    - saturated biases (every draw certain), Bernoulli, k = 1 and 2, ragged
      last batch, 2 epochs: params and scores rtol 1e-5 / atol 1e-5;
    - random parameters, all three modes, shared Philox draws, V = 784,
      H = 128, B = 128, 3 steps: params rtol 1e-5 / atol 1e-5, scores
      rtol 1e-4 / atol 1e-4 (float32 sums in another order; a few steps, so
      that no Bernoulli threshold moves by an ulp).
-4. Main path: RBM({"lr": 1e-3, "batch_size": 128, "epochs": 3}, 128).fit on
+4. RBM path: RBM({"lr": 1e-3, "batch_size": 128, "epochs": 3}, 128).fit on
    bench.py's synthetic MNIST-like data (N = 60,032, V = 784, p = 0.13);
    then the DBN 784 → 256 → 128, one epoch a layer, and its transform. The
-   kernel's launch count must rise, every score be finite, and the
+   CD kernel's launch count must rise, every score be finite, and the
    reconstruction error fall.
-5. Timing with CUDA events after warm-up: samples/s of RBM.fit, and the
-   kernel, its plain version and the bound at the main path's shape.
+5. RBM timing with CUDA events after warm-up: samples/s of RBM.fit, and the
+   kernel, its plain version and the bound at the path's shape.
+6. Serving kernels against their plain versions on the card, f32
+   (rtol/atol 1e-4: f32 sums in another order) and bf16 (rtol 1e-2, just
+   above one bf16 ulp, for the output's own rounding; atol 2e-3 for the
+   probabilities' rounding to bf16 against another running max): flash
+   forward at the prefill's shape (the cache page read through a
+   transposed view, per-row offsets) and at ragged shapes (N, KN not tile
+   multiples, G 1 and 4, window, segment ids, softcap, scalar and per-row
+   offsets, rows with no live key); flash decoding at the decode step's
+   shape and at ragged ones (lengths 0, 1 and S, G 1 and 4, softcap), and
+   its int8 variant.
+7. The serving LM at full width: 16 Transformer blocks, d_model 2048, 16
+   query heads over 4 KV heads (head dim 128), RoPE, use_flash, a
+   1,024-slot dense cache, weights from a seed (flax's initialisers), a
+   tied 1,024 × 2,048 embedding table. First in float32 with TF32 off:
+   prefill plus 16 decode steps through the kernels, then through the plain
+   paths; every output agrees at rtol/atol 1e-4. Then in bf16:
+   - generate: 8 prompts of width 128, ragged lengths 64..128, 256 greedy
+     steps with logprobs; the flash kernel must launch 32 times (one
+     prefill × 32 attention sublayers) and the decode kernel 32 × 255;
+   - ContinuousBatcher: 8 slots, prompt_len 64, chunk (8, 32), 24 requests
+     with prompts of 16..192 tokens and budgets of 32..256; every request
+     answered with exactly its budget.
+8. Serving timing: generate's decode tokens/s (the slope between 256 and
+   128 steps), prefill prompt tokens/s, batcher tokens/s and its ratio to
+   generate; torch.profiler windows over one prefill and 8 decode steps
+   (host wall time, device busy share, kernels by device time, the SM
+   clock sampled by nvidia-smi meanwhile), which give each serving
+   kernel's device time per launch on the path (`path_ms`); each kernel at
+   its path's shape, each call timed alone by CUDA events after a 256 MB
+   write has evicted L2 (on the path a layer's weights stream through L2
+   between two attention calls), against its plain version, its bound and
+   one PyTorch call computing the same function
+   (scaled_dot_product_attention with a boolean mask) (`ms`); and the
+   decode kernel alone under the profiler too, warm and cold, so that
+   `ms` and `path_ms` are also compared by one clock.
 
 The last lines are the `kernels` JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -30,28 +66,43 @@ and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ku_torch.ebm import DBN, RBM
-from ku_torch.kernels import cd_gibbs
+from ku_torch.kernels import _build, cd_gibbs
+from ku_torch.kernels import decode_attention as da
+from ku_torch.kernels import flash_attention as fa
+from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
 
 N, V_DIM, H_DIM, BATCH, EPOCHS, K = 60032, 784, 128, 128, 3, 1
 LR = 1e-3
 DEVICE = "cuda"
 
+# The serving LM (benchmarks/batcher_bench.py's "big" conf, use_flash, a
+# 1,024-slot cache) and its workloads.
+LM_BLOCKS, LM_HEADS, LM_KV_HEADS, LM_D, LM_VOCAB, LM_MAX_LEN = 16, 16, 4, 2048, 1024, 1024
+GEN_B, GEN_P, GEN_STEPS = 8, 128, 256
+CB_SLOTS, CB_PROMPT_LEN, CB_CHUNK, CB_REQUESTS = 8, 64, (8, 32), 24
+FLUSH_BYTES = 256 << 20  # written before each cold call: past the 50 MB L2
+
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
-# in FLOP/s, and memory bandwidth in bytes/s, by the name nvidia-smi reports.
+# and bf16 on the tensor cores in FLOP/s, and memory bandwidth in bytes/s,
+# by the name nvidia-smi reports.
 PEAKS = {
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100 NVL": (60e12, 3.9e12),
-    "H100": (67e12, 3.35e12),  # SXM
-    "H200": (67e12, 4.8e12),
+    "H100 PCIe": (51e12, 756e12, 2.0e12),
+    "H100 NVL": (60e12, 835e12, 3.9e12),
+    "H100": (67e12, 989e12, 3.35e12),  # SXM
+    "H200": (67e12, 989e12, 4.8e12),
 }
 
 
@@ -79,7 +130,8 @@ def peaks(name: str):
 
 
 def timed_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn over reps calls, by CUDA events."""
+    """Mean ms per call of fn() over reps calls back to back, by CUDA
+    events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -87,6 +139,37 @@ def timed_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_cold_ms(fn, reps: int) -> float:
+    """Mean ms per call of fn(), each call timed alone by CUDA events after
+    a FLUSH_BYTES write has evicted L2, so that it reads its inputs from
+    device memory as a layer of the model does (between two layers' calls
+    the weights of a layer stream through L2)."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def wall_s(fn) -> float:
+    """Host seconds of fn, ended by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# The RBM path (phases 3-5).
+# ---------------------------------------------------------------------------
 
 
 def mnist_like(seed=0) -> np.ndarray:
@@ -156,31 +239,10 @@ def recon_error(rbm, x) -> float:
     return float((rbm.inv_transform(rbm.transform(x, g), g) - x).abs().mean())
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(DEVICE)
-    card = card_line()
-    name = torch.cuda.get_device_name(0)
-    log(f"device: {name}; nvidia-smi: {card}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
-
-    # 2. Build.
-    t0 = time.perf_counter()
-    lib, report = cd_gibbs.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  {line.strip()}")
-    log(f"cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
-        f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks")
-
-    # 3. Kernel against its plain version.
+def rbm_path(dev, name) -> dict:
+    """Phases 3-5; returns the CD kernel's entry of the `kernels` line."""
     max_abs_err = check_against_plain(dev)
 
-    # 4. Main path: RBM.fit, then the DBN, counting kernel launches.
     V = torch.from_numpy(mnist_like()).to(dev)
     probe = V[:4096]
     cd_gibbs.cd_train_cuda.launches = 0
@@ -220,7 +282,6 @@ def main() -> int:
     log(f"DBN 784-256-128: transform {tuple(h.shape)}, mean activation "
         f"{float(h.mean()):.4f}; kernel launches on the main path: {launches}")
 
-    # 5. Timing, after the warm-up above.
     fit_ms = timed_ms(lambda: RBM({"lr": LR, "batch_size": BATCH, "epochs": EPOCHS},
                                   H_DIM, input_dim=V_DIM, seed=3, device=dev
                                   ).fit(V, verbose=0), 2)
@@ -238,15 +299,14 @@ def main() -> int:
     steps = EPOCHS * N // BATCH
     flops = (2 * K + 3) * 2 * BATCH * V_DIM * H_DIM * steps
     nbytes = 4 * (N * V_DIM + N + 2 * (V_DIM * H_DIM + V_DIM + H_DIM) + steps)
-    peak_flops, peak_bw = peaks(name)
-    bound_flops_ms, bound_bytes_ms = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    peak_f32, _, peak_bw = peaks(name)
+    bound_flops_ms, bound_bytes_ms = flops / peak_f32 * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(bound_flops_ms, bound_bytes_ms)
     log(f"cd_gibbs at {N}x{V_DIM}x{H_DIM}, batch {BATCH}, {EPOCHS} epochs: "
         f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
-
-    kernels = [{
+    return {
         "name": "cd_gibbs",
         "route": "cuda",
         "source": "ku_torch/csrc/cd_gibbs.cu",
@@ -254,12 +314,516 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
+        # The RBM path is not profiled: one launch is the whole fit, and
+        # `ms` is timed at the path's own shape.
+        "path_ms": None,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
         # No single PyTorch call computes a CD-k training run.
         "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# The serving path (phases 6-8).
+# ---------------------------------------------------------------------------
+
+# bf16: rtol just above one bf16 ulp (2^-7 of the value), for the output's
+# own rounding, which can fall either way; atol for the probabilities'
+# rounding to bf16 against another running max (2^-9 of each term).
+TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+        torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def flash_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
+               softcap=None, segments=False, q_offset=None, k_offset=None,
+               cache_view=False, seed=0) -> float:
+    """One flash forward, kernel against plain on the same inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    if cache_view:  # the prefill's read of the slot-minor cache page
+        k = torch.randn(b, hkv, d, kn, generator=g, device=dev).to(dtype).transpose(2, 3)
+        v = torch.randn(b, hkv, d, kn, generator=g, device=dev).to(dtype).transpose(2, 3)
+    else:
+        k = torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=dev),
+                         dim=1).values.to(torch.int32)
+    kw = dict(softmax_scale=1.0 / math.sqrt(h * d), causal=causal, window=window,
+              segment_ids=seg, q_offset=q_offset, k_offset=k_offset,
+              logit_softcap=softcap)
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_fwd_torch(q, k, v, **kw)
+    torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
+    torch.testing.assert_close(lse_k, lse_p, rtol=1e-4, atol=1e-4)
+    diff = _max_diff(o_k, o_p)
+    log(f"  flash {str(dtype)[6:]} B{b} H{h}/{hkv} N{n} KN{kn} D{d} causal {causal} "
+        f"window {window} softcap {softcap} segments {segments} "
+        f"offsets {'rows' if torch.is_tensor(q_offset) else q_offset}: "
+        f"max abs diff out {diff:.3e}, lse {_max_diff(lse_k, lse_p):.3e}")
+    return diff
+
+
+def decode_case(dev, dtype, b, hkv, g_, d, s, lengths, *, softcap=None,
+                int8=False, seed=0) -> float:
+    """One flash-decoding read, kernel against plain on the same inputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hkv, g_, d, generator=g, device=dev).to(dtype)
+    kw = dict(softmax_scale=1.0 / math.sqrt(hkv * g_ * d), logit_softcap=softcap)
+    if int8:
+        k = torch.randint(-127, 128, (b, hkv, d, s), generator=g, device=dev).to(torch.int8)
+        v = torch.randint(-127, 128, (b, hkv, d, s), generator=g, device=dev).to(torch.int8)
+        kw["k_scale"] = torch.rand(b, hkv, s, generator=g, device=dev) * 0.02
+        kw["v_scale"] = torch.rand(b, hkv, s, generator=g, device=dev) * 0.02
+    else:
+        k = torch.randn(b, hkv, d, s, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, hkv, d, s, generator=g, device=dev).to(dtype)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    o_k = da.decode_attention_cuda(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    o_p = da.decode_attention_torch(q, k, v, lengths, **kw)
+    torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
+    diff = _max_diff(o_k, o_p)
+    log(f"  decode {str(dtype)[6:]} B{b} Hkv{hkv} G{g_} D{d} S{s} int8 {int8} "
+        f"softcap {softcap} lengths {lengths.tolist()}: max abs diff {diff:.3e}")
+    return diff
+
+
+def serving_kernels_vs_plain(dev):
+    """Phase 6; returns the largest abs difference of each kernel."""
+    rows = torch.tensor([0, 64, 128, 7, 0, 64, 100, 33], dtype=torch.int32, device=dev)
+    flash, decode = 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        # The prefill's shapes: a 128-token chunk over the 1,024-slot page,
+        # first at offset 0 (generate), then at per-row offsets (later
+        # chunked rounds of the batcher).
+        flash = max(flash, flash_case(dev, dtype, GEN_B, LM_HEADS, LM_KV_HEADS, GEN_P,
+                                      LM_MAX_LEN, 128, q_offset=0, cache_view=True))
+        flash = max(flash, flash_case(dev, dtype, GEN_B, LM_HEADS, LM_KV_HEADS,
+                                      CB_PROMPT_LEN, LM_MAX_LEN, 128, q_offset=rows,
+                                      cache_view=True, seed=1))
+        # Ragged shapes and every mask.
+        flash = max(flash, flash_case(dev, dtype, 2, 4, 4, 37, 53, 64, window=7,
+                                      softcap=1.5, q_offset=torch.tensor(
+                                          [16, 3], dtype=torch.int32, device=dev),
+                                      seed=2))
+        flash = max(flash, flash_case(dev, dtype, 2, 4, 1, 70, 70, 32, segments=True,
+                                      q_offset=3, k_offset=1, seed=3))
+        flash = max(flash, flash_case(dev, dtype, 1, 3, 3, 5, 130, 128, causal=False,
+                                      seed=4))
+        # Rows with no live key (written as 0): queries 0..9 of row 0 inside
+        # a visited tile, all of row 1 with no tile visited.
+        flash = max(flash, flash_case(dev, dtype, 2, 2, 1, 70, 70, 32, k_offset=10,
+                                      q_offset=torch.tensor([0, -80], dtype=torch.int32,
+                                                            device=dev), seed=5))
+        # The decode step's shape: 8 rows, 4 KV heads of 4 query heads each,
+        # the 1,024-slot cache, ragged live prefixes.
+        decode = max(decode, decode_case(dev, dtype, GEN_B, LM_KV_HEADS, 4, 128,
+                                         LM_MAX_LEN, [64, 100, 128, 200, 257, 300,
+                                                      383, 1024]))
+        decode = max(decode, decode_case(dev, dtype, 3, 2, 1, 64, 300, [1, 300, 129],
+                                         softcap=2.0, seed=1))
+        decode = max(decode, decode_case(dev, dtype, 3, 2, 4, 64, 130, [0, 130, -1],
+                                         seed=3))
+        decode = max(decode, decode_case(dev, dtype, 2, 2, 4, 80, 77, [77, 5],
+                                         int8=True, seed=2))
+    return flash, decode
+
+
+class LM(torch.nn.Module):
+    """The serving LM: LM_BLOCKS Transformer blocks named as ku names them
+    (``block{i}``), following the cache protocol."""
+
+    def __init__(self, generator):
+        super().__init__()
+        for i in range(LM_BLOCKS):
+            self.add_module(f"block{i}", Transformer(
+                LM_HEADS, LM_D, 0.0, causal=True, rope=True, num_kv_head=LM_KV_HEADS,
+                max_decode_len=LM_MAX_LEN, use_flash=True, device=DEVICE,
+                dtype=torch.float32, generator=generator))
+
+    def forward(self, xs, decode=False, prompt_lengths=None, cache=None):
+        x = xs[0]
+        for i in range(LM_BLOCKS):
+            out = getattr(self, f"block{i}")([x], decode=decode,
+                                             prompt_lengths=prompt_lengths,
+                                             cache=cache, scope=f"block{i}")
+            x, cache = out if decode else (out, cache)
+        return (x, cache) if decode else x
+
+
+def set_attention_paths(model, kernels: bool):
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.use_flash = kernels
+            m.flash_decode = None if kernels else False
+
+
+@torch.no_grad()
+def f32_kernels_vs_plain(lm32, table32, prompts, lens, steps=16) -> float:
+    """Phase 7a: the f32 model through the kernels, then the plain paths, on
+    the same prompts and the same fed tokens."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    fed = torch.randint(0, LM_VOCAB, (GEN_B, steps), generator=g, device=DEVICE)
+
+    def run(kernels):
+        set_attention_paths(lm32, kernels)
+        y, cache = lm32([table32[prompts]], decode=True, cache={},
+                        prompt_lengths=lens)
+        outs = [y]
+        for i in range(steps):
+            y, cache = lm32([table32[fed[:, i:i + 1]]], decode=True, cache=cache)
+            outs.append(y)
+        torch.cuda.synchronize()
+        return outs
+
+    before = (fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches)
+    through_kernels = run(True)
+    check(fa.flash_fwd_cuda.launches - before[0] == 2 * LM_BLOCKS
+          and da.decode_attention_cuda.launches - before[1] == 2 * LM_BLOCKS * steps,
+          "f32 kernel run did not go through both kernels")
+    plain = run(False)
+    set_attention_paths(lm32, True)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(through_kernels, plain)):
+        check(bool(torch.isfinite(a).all()), f"non-finite f32 output at step {i}")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=f"f32 kernels vs plain, step {i}")
+        worst = max(worst, _max_diff(a, b))
+    log(f"f32 LM ({LM_BLOCKS} x d{LM_D}, GQA {LM_HEADS}/{LM_KV_HEADS}), prefill + "
+        f"{steps} decode steps, kernels vs plain paths: max abs diff {worst:.3e} "
+        f"(largest output {float(through_kernels[-1].abs().max()):.3e})")
+    return worst
+
+
+def flash_bound(b, h, hkv, n, d, q_off, itemsize, peak_bf16, peak_bw):
+    """(bound ms, bound_by) of one causal prefill at per-row offsets q_off:
+    4·B·H·(live pairs)·D operations; Q, O, LSE and the live K/V once."""
+    q_off = np.asarray(q_off, np.int64)
+    pairs = int(sum(int(o) * n + n * (n + 1) // 2 for o in q_off))
+    flops = 4 * h * pairs * d
+    live_keys = int((q_off + n).sum())
+    nbytes = (2 * b * h * n * d * itemsize + b * h * n * 4
+              + 2 * hkv * live_keys * d * itemsize)
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def decode_bound(b, h, hkv, d, lengths, itemsize, peak_bf16, peak_bw):
+    """(bound ms, bound_by) of one decode step: 4·H·len·D operations per row;
+    q and the output once, each row's live K/V slots once."""
+    live = int(np.asarray(lengths, np.int64).sum())
+    flops = 4 * h * live * d
+    nbytes = 2 * b * h * d * itemsize + 2 * hkv * live * d * itemsize
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def profiled(fn):
+    """Run fn once under torch.profiler while a thread samples the SM clock
+    with nvidia-smi; returns (host wall s, device rows (us, count, name)
+    sorted by time, SM clock samples in MHz)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    clocks, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True).stdout.split()
+            clocks.extend(int(x) for x in out[:1] if x.isdigit())
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = wall_s(fn)
+    finally:
+        stop.set()
+        sampler.join()
+    # Device-side events only (kernels, copies); the host ops that launched
+    # them carry the same time again.
+    rows = [(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0), e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall, sorted((r for r in rows if r[0] > 0), reverse=True), clocks
+
+
+def clock_range(clocks) -> str:
+    return (f"{min(clocks)}..{max(clocks)} MHz over {len(clocks)} samples"
+            if clocks else "not sampled")
+
+
+def per_launch_ms(rows, kernel: str) -> float:
+    """Device ms per launch of the kernels whose name holds `kernel`."""
+    us = sum(r[0] for r in rows if kernel in r[2])
+    count = sum(r[1] for r in rows if kernel in r[2])
+    check(count > 0, f"the profile shows no launch of {kernel}")
+    return us / count / 1e3
+
+
+def log_profile(what, wall, rows, clocks, steps=1):
+    busy_us = sum(r[0] for r in rows)
+    log(f"profile, {what}: wall {wall * 1e3 / steps:.3f} ms a step, device busy "
+        f"{busy_us / steps / 1e3:.3f} ms a step ({busy_us / (wall * 1e6):.3f} of the "
+        f"wall time), {sum(r[1] for r in rows) / steps:.0f} device ops a step; "
+        f"SM clock {clock_range(clocks)}")
+    for us, count, key in rows[:8]:
+        log(f"  {us / steps:9.1f} us a step  {count // steps:5d} x  {key[:90]}")
+
+
+@torch.no_grad()
+def profile_path(lm, embed, readout, prompts, lens, steps=8):
+    """Where the path's time goes: one prefill, then `steps` greedy decode
+    steps, each under the profiler. Returns the device ms per launch of the
+    flash kernel (prefill) and of the decode kernel (decode steps)."""
+    x0 = embed(prompts)
+    prefill = lambda: lm([x0], decode=True, cache={}, prompt_lengths=lens)  # noqa: E731
+    prefill()  # warm the profiler's first-use costs out of the window
+    wall, rows, clocks = profiled(prefill)
+    log_profile("one prefill", wall, rows, clocks)
+    flash_path_ms = per_launch_ms(rows, "flash_fwd_kernel")
+
+    y, cache = prefill()
+    tok = readout(y[torch.arange(GEN_B, device=y.device), lens.long() - 1][:, None]
+                  )[:, 0].argmax(-1)
+
+    def run():
+        nonlocal cache, tok
+        for _ in range(steps):
+            y, cache = lm([embed(tok[:, None])], decode=True, cache=cache)
+            tok = readout(y)[:, 0].argmax(-1)
+
+    run()
+    wall, rows, clocks = profiled(run)
+    log_profile(f"{steps} decode steps", wall, rows, clocks, steps)
+    return flash_path_ms, per_launch_ms(rows, "decode_kernel")
+
+
+def serving_path(dev, name) -> list:
+    """Phases 6-8; returns the entries of the two serving kernels."""
+    flash_err, decode_err = serving_kernels_vs_plain(dev)
+    _, peak_bf16, peak_bw = peaks(name)
+
+    # 7. The LM at full width, weights from a seed.
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    lm32 = LM(g).eval()
+    rng = np.random.default_rng(0)
+    table_np = (rng.normal(size=(LM_VOCAB, LM_D)) * 0.05).astype(np.float32)
+    table32 = torch.from_numpy(table_np).to(dev)
+    n_params = sum(p.numel() for p in lm32.parameters())
+    lens_np = np.linspace(64, GEN_P, GEN_B).astype(np.int64)
+    prompts = torch.from_numpy(
+        rng.integers(0, LM_VOCAB, size=(GEN_B, GEN_P))).to(dev)
+    lens = torch.from_numpy(lens_np).to(torch.int32).to(dev)
+    log(f"serving LM: {n_params / 1e9:.3f}B parameters, built in "
+        f"{time.perf_counter() - t0:.2f} s; prompt lengths {lens_np.tolist()}")
+    f32_err = f32_kernels_vs_plain(lm32, table32, prompts, lens)
+
+    lm = copy.deepcopy(lm32).to(torch.bfloat16)
+    del lm32
+    torch.cuda.empty_cache()
+    table = table32.to(torch.bfloat16)
+    embed = lambda ids, pos=None: table[ids]  # noqa: E731 (RoPE: no PE table)
+    readout = lambda y: y @ table.T  # noqa: E731
+
+    def gen(steps):
+        return generate(lm, prompts, steps, embed=embed, readout=readout,
+                        prompt_lengths=lens, return_logprobs=True)
+
+    fa.flash_fwd_cuda.launches = da.decode_attention_cuda.launches = 0
+    ids, lps = gen(GEN_STEPS)
+    torch.cuda.synchronize()
+    gen_flash, gen_decode = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    check(ids.shape == (GEN_B, GEN_STEPS) and lps.shape == (GEN_B, GEN_STEPS),
+          f"generate shapes {tuple(ids.shape)}, {tuple(lps.shape)}")
+    check(bool(((ids >= 0) & (ids < LM_VOCAB)).all()), "ids out of the vocabulary")
+    check(bool(torch.isfinite(lps).all() and (lps <= 0).all()), "bad logprobs")
+    want = (2 * LM_BLOCKS, 2 * LM_BLOCKS * (GEN_STEPS - 1))
+    check((gen_flash, gen_decode) == want,
+          f"generate launched flash {gen_flash} / decode {gen_decode} times, "
+          f"expected {want}")
+    log(f"generate bf16 {GEN_B} x {GEN_STEPS} steps: ids {tuple(ids.shape)}, "
+        f"mean logprob {float(lps.float().mean()):.4f}, first row "
+        f"{ids[0, :12].tolist()}; launches flash {gen_flash}, decode {gen_decode}")
+
+    # ContinuousBatcher: 24 requests through 8 slots.
+    cb = ContinuousBatcher(lm, embed=embed, readout=readout, num_slots=CB_SLOTS,
+                           prompt_len=CB_PROMPT_LEN, max_decode_len=LM_MAX_LEN,
+                           chunk=CB_CHUNK)
+    reqs = [rng.integers(0, LM_VOCAB, size=(int(n),))
+            for n in rng.integers(16, 193, size=CB_REQUESTS)]
+    budgets = [int(b) for b in rng.integers(32, 257, size=CB_REQUESTS)]
+    cb.reset()  # builds the cache spec (one throwaway prefill) before counting
+    fa.flash_fwd_cuda.launches = da.decode_attention_cuda.launches = 0
+    results = cb.serve(reqs, budgets)
+    torch.cuda.synchronize()
+    cb_flash, cb_decode = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    st = cb.last_stats
+    check(len(results) == CB_REQUESTS and all(
+        r is not None and len(r) == b for r, b in zip(results, budgets)),
+        "a request was not answered with exactly its budget")
+    steps_run = (st["decoded_tokens"] + st["wasted_slot_steps"]) // CB_SLOTS
+    check(cb_flash == 2 * LM_BLOCKS * st["prefill_rounds"]
+          and cb_decode == 2 * LM_BLOCKS * steps_run,
+          f"batcher launched flash {cb_flash} / decode {cb_decode} times for "
+          f"{st['prefill_rounds']} prefill rounds and {steps_run} steps")
+    log(f"ContinuousBatcher: {CB_REQUESTS} requests, prompts "
+        f"{min(len(r) for r in reqs)}..{max(len(r) for r in reqs)}, budgets "
+        f"{min(budgets)}..{max(budgets)}, all answered; last_stats {st}; "
+        f"launches flash {cb_flash}, decode {cb_decode}")
+
+    # 8. Timing (everything above warmed the kernels and the allocator).
+    t_full = min(wall_s(lambda: gen(GEN_STEPS)) for _ in range(2))
+    t_half = min(wall_s(lambda: gen(GEN_STEPS // 2)) for _ in range(2))
+    decode_tps = GEN_B * (GEN_STEPS - GEN_STEPS // 2) / (t_full - t_half)
+    gen_tps = GEN_B * GEN_STEPS / t_full
+    with torch.no_grad():
+        x0 = embed(prompts)
+        t_pre = min(wall_s(lambda: lm([x0], decode=True, cache={},
+                                      prompt_lengths=lens)) for _ in range(3))
+    prefill_tps = float(lens_np.sum()) / t_pre
+    t_cb = wall_s(lambda: cb.serve(reqs, budgets))
+    cb_tps = cb.last_stats["decoded_tokens"] / t_cb
+    flash_path_ms, decode_path_ms = profile_path(lm, embed, readout, prompts, lens)
+    log(f"generate: {GEN_STEPS} steps {t_full:.4f} s, {GEN_STEPS // 2} steps "
+        f"{t_half:.4f} s; decode {decode_tps:.1f} tokens/s (slope), "
+        f"{1e3 * (t_full - t_half) / (GEN_STEPS - GEN_STEPS // 2):.3f} ms a step; "
+        f"whole run {gen_tps:.1f} tokens/s")
+    log(f"prefill: {int(lens_np.sum())} prompt tokens in {t_pre * 1e3:.3f} ms, "
+        f"{prefill_tps:.1f} tokens/s")
+    log(f"batcher: {cb.last_stats['decoded_tokens']} tokens in {t_cb:.4f} s, "
+        f"{cb_tps:.1f} tokens/s, {cb_tps / gen_tps:.3f} of generate's whole-run rate")
+
+    # Each kernel at its path's shape: flash at generate's prefill (bf16,
+    # offset 0 over the 1,024-slot page), decode at the middle step of
+    # generate (live lengths = prompt length + 128), each call cold in L2.
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    hd = LM_D // LM_HEADS
+    scale = 1.0 / math.sqrt(LM_D)
+    ck = torch.randn(GEN_B, LM_KV_HEADS, hd, LM_MAX_LEN, generator=g, device=dev).to(bf)
+    cv = torch.randn(GEN_B, LM_KV_HEADS, hd, LM_MAX_LEN, generator=g, device=dev).to(bf)
+    kT, vT = ck.transpose(2, 3), cv.transpose(2, 3)
+    q = torch.randn(GEN_B, LM_HEADS, GEN_P, hd, generator=g, device=dev).to(bf)
+    qd = torch.randn(GEN_B, LM_KV_HEADS, LM_HEADS // LM_KV_HEADS, hd, generator=g,
+                     device=dev).to(bf)
+    zero = torch.zeros(GEN_B, dtype=torch.int32, device=dev)
+    fkw = dict(softmax_scale=scale, causal=True, q_offset=zero)
+    causal_mask = (torch.arange(LM_MAX_LEN, device=dev)[None, :]
+                   <= torch.arange(GEN_P, device=dev)[:, None])[None, None].expand(
+                       GEN_B, 1, GEN_P, LM_MAX_LEN)
+    flash_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, kT, vT, **fkw), 60)
+    flash_plain_ms = timed_cold_ms(lambda: fa.flash_fwd_torch(q, kT, vT, **fkw), 6)
+    flash_lib_ms = timed_cold_ms(lambda: F.scaled_dot_product_attention(
+        q, kT, vT, attn_mask=causal_mask, scale=scale, enable_gqa=True), 60)
+    flash_bound_ms, flash_by = flash_bound(GEN_B, LM_HEADS, LM_KV_HEADS, GEN_P, hd,
+                                           [0] * GEN_B, 2, peak_bf16, peak_bw)
+    mid = lens + GEN_STEPS // 2
+    dkw = dict(softmax_scale=scale)
+    live_mask = (torch.arange(LM_MAX_LEN, device=dev)[None, :]
+                 < mid[:, None])[:, None, None, :]
+    decode = lambda: da.decode_attention_cuda(qd, ck, cv, mid, **dkw)  # noqa: E731
+    decode_ms = timed_cold_ms(decode, 300)
+    decode_plain_ms = timed_cold_ms(lambda: da.decode_attention_torch(
+        qd, ck, cv, mid, **dkw), 60)
+    decode_lib_ms = timed_cold_ms(lambda: F.scaled_dot_product_attention(
+        qd.reshape(GEN_B, LM_HEADS, 1, hd), kT, vT, attn_mask=live_mask, scale=scale,
+        enable_gqa=True), 300)
+    decode_warm_ms = timed_ms(decode, 300)
+    decode_bound_ms, decode_by = decode_bound(GEN_B, LM_HEADS, LM_KV_HEADS, hd,
+                                              mid.tolist(), 2, peak_bf16, peak_bw)
+    # The standalone call under the profiler, warm and cold, to set beside
+    # path_ms: one clock for all three.
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    wall, rows, clocks = profiled(lambda: [decode() for _ in range(64)])
+    alone_warm_ms = per_launch_ms(rows, "decode_kernel")
+    wall, rows, clocks = profiled(lambda: [(flush.zero_(), decode()) for _ in range(64)])
+    alone_cold_ms = per_launch_ms(rows, "decode_kernel")
+    del flush
+    log(f"profile, 64 standalone decode launches: {alone_warm_ms:.4f} ms each warm, "
+        f"{alone_cold_ms:.4f} ms each cold; SM clock {clock_range(clocks)}")
+    log(f"flash_fwd at B{GEN_B} H{LM_HEADS}/{LM_KV_HEADS} N{GEN_P} KN{LM_MAX_LEN} "
+        f"D{hd} bf16, offset 0, cold L2: kernel {flash_ms:.4f} ms, plain "
+        f"{flash_plain_ms:.4f} ms, SDPA {flash_lib_ms:.4f} ms, bound "
+        f"{flash_bound_ms:.5f} ms ({flash_by}); on the path (profiler, prefill "
+        f"lengths {lens_np.tolist()}) {flash_path_ms:.4f} ms a launch")
+    log(f"decode_attention at B{GEN_B} Hkv{LM_KV_HEADS} G4 D{hd} S{LM_MAX_LEN} bf16, "
+        f"lengths {mid.tolist()}, cold L2: kernel {decode_ms:.4f} ms (warm "
+        f"{decode_warm_ms:.4f} ms), plain {decode_plain_ms:.4f} ms, SDPA "
+        f"{decode_lib_ms:.4f} ms, bound {decode_bound_ms:.5f} ms ({decode_by}); "
+        f"standalone under the profiler {alone_cold_ms:.4f} ms cold, on the path "
+        f"(profiler, the 8 steps after the prefill) {decode_path_ms:.4f} ms a launch")
+    log(f"max abs diff kernel vs plain: flash {flash_err:.3e}, decode "
+        f"{decode_err:.3e}; f32 LM through the kernels vs plain {f32_err:.3e}")
+    return [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "ku_torch/csrc/flash_fwd.cu",
+        "replaces": "ku/pallas/flash_attention.py:154",
+        "launches": gen_flash,
+        "max_abs_err": max(flash_err, f32_err),
+        "ms": flash_ms,
+        "path_ms": flash_path_ms,
+        "plain_ms": flash_plain_ms,
+        "bound_ms": flash_bound_ms,
+        "bound_by": flash_by,
+        "library_ms": flash_lib_ms,
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "ku_torch/csrc/decode_attention.cu",
+        "replaces": "ku/pallas/decode_attention.py:80",
+        "launches": gen_decode,
+        "max_abs_err": max(decode_err, f32_err),
+        "ms": decode_ms,
+        "path_ms": decode_path_ms,
+        "plain_ms": decode_plain_ms,
+        "bound_ms": decode_bound_ms,
+        "bound_by": decode_by,
+        "library_ms": decode_lib_ms,
     }]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"device: {name}; nvidia-smi: {card}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # 2. Build, one nvcc per source, all started together.
+    t0 = time.perf_counter()
+    modules = (cd_gibbs, fa, da)
+    built = _build.build_many([(m.SOURCE, m.NAME) for m in modules])
+    log(f"build: {', '.join(lib.name for lib, _ in built)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for m, (_, report) in zip(modules, built):
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  {m.NAME}: {line.strip()}")
+    log(f"cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
+        f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks")
+
+    kernels = [rbm_path(dev, name)]
+    kernels += serving_path(dev, name)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

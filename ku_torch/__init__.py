@@ -2,10 +2,15 @@
 
 So far it holds the RBM / DBN trainer (:mod:`ku_torch.ebm`), whose CD-k run
 is one launch of a hand-written Hopper kernel
-(:mod:`ku_torch.kernels.cd_gibbs`), the JSON config contract and seed
-streams (:mod:`ku_torch.core`), and the JSON+npz weight files shared with
-``ku`` (:mod:`ku_torch.utility`). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+(:mod:`ku_torch.kernels.cd_gibbs`); the attention, transformer and serving
+stack (:mod:`ku_torch.nn`: ``MultiHeadAttention``, ``Transformer``,
+``generate``, a dense-cache ``ContinuousBatcher``), whose prefill and
+per-token reads go through hand-written kernels for flash attention and
+flash decoding (:mod:`ku_torch.kernels.flash_attention`,
+:mod:`ku_torch.kernels.decode_attention`); the JSON config contract and
+seed streams (:mod:`ku_torch.core`); and the JSON+npz weight files and
+state-dict conversion shared with ``ku`` (:mod:`ku_torch.utility`). Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from ku_torch.core import config as config
@@ -19,9 +24,12 @@ from ku_torch.utility import (
     load_model_jh5,
     params_from_numpy,
     params_to_numpy,
+    state_dict_from_tree,
+    tree_from_state_dict,
 )
 
 from ku_torch import ebm as ebm
 from ku_torch import kernels as kernels
+from ku_torch import nn as nn
 
 __version__ = "0.1.0"

@@ -1,0 +1,77 @@
+"""Build a kernel source from ``ku_torch/csrc`` into a shared library.
+
+Each kernel is one ``.cu`` file with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` at first use into ``ku_torch/_build`` (git-ignored)
+and loaded with ``ctypes`` by its wrapper. The library's file name carries
+the source's hash, so an edited source is rebuilt and an unchanged one is
+not. Every kernel keeps its own library, so a failed build names its own
+source.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterable, List, Tuple
+
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the kernels are built with the "
+                           "CUDA toolkit at first use")
+    return path
+
+
+def library_path(source: Path, name: str) -> Path:
+    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
+    """Compile every ``(source, name)`` not built yet, one ``nvcc`` process
+    per source, all started together.
+
+    Returns one (library path, compiler output; empty when already built)
+    per spec, in order. Raises naming the first source that failed."""
+    specs = [(Path(src), name) for src, name in specs]
+    jobs = []
+    for src, name in specs:
+        lib = library_path(src, name)
+        if lib.exists():
+            jobs.append((src, lib, None, None))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((src, lib, tmp, proc))
+    results, failed = [], []
+    for src, lib, tmp, proc in jobs:
+        if proc is None:
+            results.append((lib, ""))
+            continue
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{out}")
+            continue
+        os.replace(tmp, lib)
+        results.append((lib, out))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
+def build(source: Path, name: str) -> Tuple[Path, str]:
+    """Compile one source if it has not been built yet.
+
+    Returns (library path, compiler output; empty when already built)."""
+    return build_many([(source, name)])[0]

@@ -26,60 +26,35 @@ score of a step taken on its pre-update parameters.
 
 The kernel is built with ``nvcc`` at first use, from ``ku_torch/csrc`` only,
 into ``ku_torch/_build`` (named by the source's hash), and loaded with
-``ctypes``.
+``ctypes`` (:mod:`ku_torch.kernels._build`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ku_torch.core.rng import philox_uniforms
+from ku_torch.kernels import _build
 
 MODE_VISIBLE_BERNOULLI = 0
 MODE_VISIBLE_GAUSSIAN = 1
 MODE_COMPLEX = 2
 
 _INV_SQRT2 = 0.7071067811865476  # sigma = sqrt(1/2) for CN(mu, I) components
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "cd_gibbs.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CD kernel is built with the "
-                           "CUDA toolkit at first use")
-    return nvcc
+NAME = "cd_gibbs"
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cd_gibbs.cu"
 
 
 def build() -> tuple[Path, str]:
     """Compile the kernel if this source has not been built yet.
 
     Returns (library path, compiler output; empty when already built)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libcd_gibbs_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return _build.build(SOURCE, NAME)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,373 @@
+"""Multi-head attention with five similarity types, and its KV-cache decode.
+
+Port of ``ku/nn/attention.py``. Parameters keep ``ku``'s names and layouts
+(``W_Q`` (d, d), ``W_K``/``W_V`` (d, d/H·Hkv), ``W_multi_head`` (d, d_out),
+no biases, applied as ``x @ W``), so ``load_state_dict`` takes
+:func:`ku_torch.utility.state_dict_from_tree` of ``ku``'s params as it is.
+
+Decode (``decode=True``) follows ``ku``'s cache protocol with an explicit
+cache: a dict keyed like ``ku``'s ``cache`` collection,
+``{scope}/cached_key`` (B, Hkv, D/H, max_decode_len) and
+``{scope}/cached_value`` (slot axis minor, the K/V dtype) and
+``{scope}/cache_index`` (B,) int32, created on first use. The forward
+updates the dict and its tensors IN PLACE (the K/V write at each row's
+index) and returns ``(y, cache)``. L > 1 is a prefill, ragged with
+``prompt_lengths``; L = 1 is one token per row.
+
+The two kernels on this path are chosen by the tensor's device, never by
+size: ``use_flash`` routes prefill and the non-decode scaled path through
+:func:`ku_torch.kernels.flash_attention.flash_attention`, and the per-token
+read goes through :func:`ku_torch.kernels.decode_attention.decode_attention`
+unless ``flash_decode=False`` asks for the plain masked read. On a CUDA
+tensor each launches its kernel (or raises); on a CPU tensor each takes its
+plain version.
+
+Not ported yet, and raising ``NotImplementedError`` with the slice that
+brings them: the paged cache (``kv_page_size``), the ring cache
+(``window`` with ``decode=True``), the int8 KV cache (``kv_cache_dtype``),
+``quant_weights``, ``block_mask``, and gradients through ``use_flash``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ku_torch.kernels.decode_attention import decode_attention
+from ku_torch.kernels.flash_attention import flash_attention
+
+SIMILARITY_TYPE_DIFF_ABS = "diff_abs"
+SIMILARITY_TYPE_PLAIN = "plain"
+SIMILARITY_TYPE_SCALED = "scaled"
+SIMILARITY_TYPE_GENERAL = "general"
+SIMILARITY_TYPE_ADDITIVE = "additive"
+
+_SIMILARITY_TYPES = (
+    SIMILARITY_TYPE_DIFF_ABS,
+    SIMILARITY_TYPE_PLAIN,
+    SIMILARITY_TYPE_SCALED,
+    SIMILARITY_TYPE_GENERAL,
+    SIMILARITY_TYPE_ADDITIVE,
+)
+_MASKED = -1e30
+
+
+def _not_ported(feature: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(f"{feature} is not ported to ku_torch yet; it "
+                               f"comes with the {slice_} slice of the port")
+
+
+def scoped(scope: str, name: str) -> str:
+    """``ku``'s '/'-joined variable path: ``scope/name`` (``name`` at top)."""
+    return f"{scope}/{name}" if scope else name
+
+
+def trunc_normal(shape, std, generator=None, device=None, dtype=None):
+    """flax's ``truncated_normal(stddev=std)``: N(0, std²) cut at ±2 std."""
+    w = torch.empty(shape, device=device, dtype=dtype)
+    return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+def apply_rope(x, pos, base: float = 10000.0):
+    """Rotate head vectors by absolute positions (RoPE, GPT-NeoX rotate-half
+    convention). ``x``: (B, H, L, D) with D even; ``pos``: (L,) shared or
+    (B, L) per-row integer positions. Computed in f32, returned in x's dtype."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"rope needs an even head dim, got {d}")
+    pos = torch.as_tensor(pos, device=x.device)
+    if pos.dim() not in (1, 2):
+        raise ValueError(f"pos must be (L,) or (B, L), got shape "
+                         f"{tuple(pos.shape)}")
+    half = d // 2
+    freq = base ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = pos[..., None].to(torch.float32) * freq
+    ang = ang[None, None] if ang.dim() == 2 else ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).to(x.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA over ``inputs = [Q, K, V, M]``, as ``ku.nn.MultiHeadAttention``.
+
+    The constructor takes ``ku``'s fields plus what flax infers from the
+    first call: ``d_input`` (the width of Q, K and V; ``d_output`` by
+    default), ``device``, ``dtype`` and the ``generator`` that draws the
+    initial weights (flax's truncated normal, std 0.02)."""
+
+    def __init__(self, num_head: int, d_output: int, dropout_rate: float = 0.0,
+                 similarity_type: str = SIMILARITY_TYPE_SCALED,
+                 use_mask: bool = False, use_flash: bool = False,
+                 causal: bool = False, window: Optional[int] = None,
+                 num_kv_head: Optional[int] = None,
+                 max_decode_len: Optional[int] = None,
+                 global_prefix: int = 0,
+                 kv_cache_dtype: Optional[str] = None,
+                 kv_page_size: Optional[int] = None,
+                 kv_num_pages: Optional[int] = None,
+                 logit_softcap: Optional[float] = None,
+                 rope: bool = False, rope_base: float = 10000.0,
+                 flash_decode: Optional[bool] = None,
+                 quant_weights: Union[bool, str] = False, *,
+                 d_input: Optional[int] = None, device="cuda", dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if kv_page_size is not None or kv_num_pages is not None:
+            raise _not_ported("the paged KV cache (kv_page_size)", "paged-cache")
+        if kv_cache_dtype is not None:
+            if kv_cache_dtype != "int8":
+                raise ValueError("kv_cache_dtype must be None or 'int8', got "
+                                 f"{kv_cache_dtype!r}")
+            raise _not_ported("the int8 KV cache (kv_cache_dtype='int8')",
+                              "int8-cache")
+        if quant_weights:
+            raise _not_ported("quant_weights", "weight-quantization")
+        self.num_head = num_head
+        self.d_output = d_output
+        self.dropout_rate = dropout_rate
+        self.similarity_type = similarity_type
+        self.use_mask = use_mask
+        self.use_flash = use_flash
+        self.causal = causal
+        self.window = window
+        self.num_kv_head = num_kv_head
+        self.max_decode_len = max_decode_len
+        self.global_prefix = global_prefix
+        self.logit_softcap = logit_softcap
+        self.rope = rope
+        self.rope_base = rope_base
+        self.flash_decode = flash_decode
+
+        d = d_output if d_input is None else d_input
+        h = num_head
+        hkv = num_kv_head if num_kv_head is not None else h
+        if d % h or h % hkv:
+            raise ValueError(f"width {d} must split into {h} heads, and {h} "
+                             f"heads into {hkv} kv heads")
+        dh = d // h
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.W_Q = nn.Parameter(trunc_normal((d, d), 0.02, **kw))
+        self.W_K = nn.Parameter(trunc_normal((d, dh * hkv), 0.02, **kw))
+        self.W_V = nn.Parameter(trunc_normal((d, dh * hkv), 0.02, **kw))
+        self.W_multi_head = nn.Parameter(trunc_normal((d, d_output), 0.02, **kw))
+        if similarity_type == SIMILARITY_TYPE_GENERAL:
+            self.W_gen_S = nn.Parameter(trunc_normal((dh, dh), 0.02, **kw))
+        elif similarity_type == SIMILARITY_TYPE_ADDITIVE:
+            self.W_add_S_Q = nn.Parameter(trunc_normal((dh, dh), 0.02, **kw))
+            self.W_add_S_K = nn.Parameter(trunc_normal((dh, dh), 0.02, **kw))
+
+    def _cap(self, s):
+        if self.logit_softcap is None:
+            return s
+        return self.logit_softcap * torch.tanh(s / self.logit_softcap)
+
+    def _validate(self, decode, segment_ids, block_mask, prompt_lengths):
+        if self.similarity_type not in _SIMILARITY_TYPES:
+            raise ValueError(f"similarity_type {self.similarity_type!r} is not valid.")
+        if self.window is not None and not self.causal:
+            raise ValueError("window requires causal=True")
+        if block_mask is not None:
+            raise _not_ported("block-sparse attention (block_mask)", "block-sparse")
+        if self.global_prefix:
+            if self.window is None:
+                raise ValueError("global_prefix (attention sinks) is an escape "
+                                 "from a sliding window — set window too")
+            if self.use_flash:
+                raise ValueError("the flash window kernel has no sink escape — "
+                                 "express global_prefix via block_mask instead")
+        if decode and not self.causal:
+            raise ValueError("decode=True requires causal=True")
+        if decode and self.window is not None:
+            raise _not_ported("the ring KV cache (window with decode=True)",
+                              "ring-cache")
+        if decode and self.max_decode_len is None:
+            raise ValueError("decode=True requires max_decode_len")
+        scaled = (self.similarity_type == SIMILARITY_TYPE_SCALED
+                  and not self.use_mask)
+        if decode and not scaled:
+            raise ValueError("decode supports the scaled no-mask path")
+        if decode and segment_ids is not None:
+            raise ValueError("decode does not support segment_ids")
+        if self.rope and not scaled:
+            raise ValueError("rope requires the scaled no-mask path")
+        if self.logit_softcap is not None:
+            if self.logit_softcap <= 0.0:
+                raise ValueError("logit_softcap must be positive, got "
+                                 f"{self.logit_softcap}")
+            if not scaled:
+                raise ValueError("logit_softcap requires the scaled no-mask path")
+        if prompt_lengths is not None and not decode:
+            raise ValueError("prompt_lengths is a decode-prefill argument")
+
+    def forward(self, inputs, deterministic: bool = True, decode: bool = False,
+                segment_ids=None, block_mask=None, prompt_lengths=None,
+                cache: Optional[dict] = None, scope: str = ""):
+        """Attention over ``inputs = [Q, K, V(, M)]``, each (B, N, d).
+
+        Returns (B, N, d_output); with ``decode=True``, ``(y, cache)``, the
+        cache dict updated in place (created when ``cache`` is None or
+        lacks this layer's entries). ``scope`` is the layer's path in the
+        cache, as in ``ku``'s collection (``block0/MultiHeadAttention_1``)."""
+        self._validate(decode, segment_ids, block_mask, prompt_lengths)
+        q, k, v = inputs[0], inputs[1], inputs[2]
+        m = inputs[3] if len(inputs) > 3 else None
+        d_k, d_v = k.shape[-1], v.shape[-1]
+        h = self.num_head
+        hkv = self.num_kv_head if self.num_kv_head is not None else h
+        d_k_h, d_v_h = d_k // h, d_v // h
+
+        def split_heads(x, dh, nh=h):
+            b, n = x.shape[0], x.shape[1]
+            return x.reshape(b, n, nh, dh).transpose(1, 2)
+
+        q_h = split_heads(q @ self.W_Q, d_k_h)
+        k_h = split_heads(k @ self.W_K, d_k_h, hkv)
+        v_h = split_heads(v @ self.W_V, d_v_h, hkv)
+        if self.rope:
+            if d_k_h % 2:
+                raise ValueError(f"rope needs an even head dim, got {d_k_h}")
+            if not decode:
+                # Positions 0..n-1 on both sides; decode rotates by global
+                # cache positions instead.
+                q_h = apply_rope(q_h, torch.arange(q_h.shape[2], device=q.device),
+                                 self.rope_base)
+                k_h = apply_rope(k_h, torch.arange(k_h.shape[2], device=k.device),
+                                 self.rope_base)
+
+        if decode:
+            if cache is None:
+                cache = {}
+            head = self._decode(q_h, k_h, v_h, d_k, prompt_lengths, cache, scope)
+        elif (self.use_flash and self.similarity_type == SIMILARITY_TYPE_SCALED
+              and not self.use_mask
+              and (self.dropout_rate == 0.0 or deterministic)):
+            head = flash_attention(q_h, k_h, v_h,
+                                   softmax_scale=1.0 / math.sqrt(d_k),
+                                   causal=self.causal, window=self.window,
+                                   segment_ids=segment_ids,
+                                   logit_softcap=self.logit_softcap)
+        else:
+            head = self._dense(q_h, k_h, v_h, m, d_k, segment_ids, deterministic)
+
+        b, n = q.shape[0], q.shape[1]
+        y = head.transpose(1, 2).reshape(b, n, d_v) @ self.W_multi_head
+        return (y, cache) if decode else y
+
+    def _dense(self, q_h, k_h, v_h, m, d_k, segment_ids, deterministic):
+        h = self.num_head
+        if k_h.shape[1] != h:  # GQA on the dense path: materialise the repeat
+            k_h = k_h.repeat_interleave(h // k_h.shape[1], dim=1)
+            v_h = v_h.repeat_interleave(h // v_h.shape[1], dim=1)
+        st = self.similarity_type
+        if st == SIMILARITY_TYPE_PLAIN:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q_h, k_h)
+        elif st == SIMILARITY_TYPE_SCALED:
+            # Scaled by sqrt(d_k), the full model width, as ku and its
+            # reference do, not by the head width.
+            scores = self._cap(torch.einsum("bhqd,bhkd->bhqk", q_h, k_h)
+                               / math.sqrt(d_k))
+        elif st == SIMILARITY_TYPE_GENERAL:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q_h, k_h @ self.W_gen_S)
+        elif st == SIMILARITY_TYPE_DIFF_ABS:
+            diff = (q_h[:, :, :, None, :] - k_h[:, :, None, :, :]).abs()
+            scores = torch.exp(-diff.mean(dim=-1))
+        else:  # additive
+            qa = q_h @ self.W_add_S_Q
+            ka = k_h @ self.W_add_S_K
+            scores = torch.tanh(qa[:, :, :, None, :] + ka[:, :, None, :, :]
+                                ).sum(dim=-1) / math.sqrt(q_h.shape[-1])
+        if self.causal:
+            nq, nk = scores.shape[-2], scores.shape[-1]
+            q_pos = torch.arange(nq, device=scores.device)[:, None]
+            k_pos = torch.arange(nk, device=scores.device)[None, :]
+            keep = k_pos <= q_pos
+            if self.window is not None:
+                keep = keep & ((q_pos - k_pos < self.window)
+                               | (k_pos < self.global_prefix))
+            scores = torch.where(keep[None, None], scores, _MASKED)
+        if segment_ids is not None:
+            seg_q, seg_k = (segment_ids if isinstance(segment_ids, (tuple, list))
+                            else (segment_ids, segment_ids))
+            seg_q = torch.as_tensor(seg_q, device=scores.device)
+            seg_k = torch.as_tensor(seg_k, device=scores.device)
+            keep_seg = seg_q[:, :, None] == seg_k[:, None, :]
+            scores = torch.where(keep_seg[:, None], scores, _MASKED)
+        probs = torch.softmax(scores, dim=-1)
+        if self.use_mask and m is not None:
+            probs = probs * m
+        if self.dropout_rate > 0.0 and not deterministic:
+            probs = F.dropout(probs, p=self.dropout_rate, training=True)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v_h)
+
+    def _decode(self, q_h, k_h, v_h, d_k, prompt_lengths, cache, scope):
+        """Dense-cache decode: write this chunk's K/V at each row's index,
+        then attend the cache. Returns the heads (B, H, L, Dv/H)."""
+        bsz, h, L, d_k_h = q_h.shape
+        hkv, d_v_h = k_h.shape[1], v_h.shape[-1]
+        mx = self.max_decode_len
+        device = q_h.device
+        names = [scoped(scope, n) for n in ("cached_key", "cached_value",
+                                            "cache_index")]
+        if names[0] not in cache:
+            cache[names[0]] = torch.zeros(bsz, hkv, d_k_h, mx, dtype=k_h.dtype,
+                                          device=device)
+            cache[names[1]] = torch.zeros(bsz, hkv, d_v_h, mx, dtype=v_h.dtype,
+                                          device=device)
+            cache[names[2]] = torch.zeros(bsz, dtype=torch.int32, device=device)
+        ck, cv, idx = (cache[n] for n in names)
+        if prompt_lengths is not None:
+            if L == 1:
+                raise ValueError("prompt_lengths requires a chunk of width > 1 "
+                                 "(per-token steps always advance each "
+                                 "sequence by 1)")
+            prompt_lengths = torch.as_tensor(prompt_lengths, device=device
+                                             ).to(torch.int32)
+            if prompt_lengths.shape != (bsz,):
+                raise ValueError(f"prompt_lengths must have shape ({bsz},), "
+                                 f"got {tuple(prompt_lengths.shape)}")
+        steps = torch.arange(L, device=device)
+        if self.rope:
+            # Global positions, before caching: cached keys never need
+            # rotating again.
+            gpos = idx[:, None] + steps[None]
+            q_h = apply_rope(q_h, gpos, self.rope_base)
+            k_h = apply_rope(k_h, gpos, self.rope_base)
+        # Per-row write at idx, start clamped so the chunk fits (as ku's
+        # dynamic_update_slice); the cache is slot-minor, the chunk
+        # arrives (B, Hkv, L, D).
+        start = idx.clamp(0, mx - L).long()
+        rows = torch.arange(bsz, device=device)[:, None]
+        slots = start[:, None] + steps[None]
+        ck[rows, :, :, slots] = k_h.permute(0, 2, 1, 3)
+        cv[rows, :, :, slots] = v_h.permute(0, 2, 1, 3)
+        cache[names[2]] = idx + (prompt_lengths if prompt_lengths is not None
+                                 else L)
+        scale = 1.0 / math.sqrt(d_k)
+        group = h // hkv
+        qg = q_h.reshape(bsz, hkv, group, L, d_k_h)
+
+        # Attend the whole cache page under a causal mask at q_offset = idx:
+        # it admits earlier chunks' keys and hides the unwritten tail.
+        # Padding past a row's prompt length is written but stays invisible
+        # below cache_index, and its outputs are ignored.
+        if L > 1 and self.use_flash:
+            return flash_attention(q_h, ck.transpose(2, 3), cv.transpose(2, 3),
+                                   softmax_scale=scale, causal=True,
+                                   q_offset=idx, logit_softcap=self.logit_softcap)
+        if L == 1 and self.flash_decode is not False:
+            res = decode_attention(qg[:, :, :, 0].contiguous(), ck, cv,
+                                   idx + 1, softmax_scale=scale,
+                                   logit_softcap=self.logit_softcap)
+            return res.reshape(bsz, h, 1, d_v_h)
+        pos = torch.arange(mx, device=device)[None, None, :]
+        keep = pos <= idx[:, None, None] + steps[None, :, None]  # (B, L, mx)
+        s = torch.einsum("bhgqd,bhdk->bhgqk", qg, ck) / math.sqrt(d_k)
+        s = torch.where(keep[:, None, None], self._cap(s), _MASKED)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhgqk,bhdk->bhgqd", p, cv).reshape(bsz, h, L, d_v_h)

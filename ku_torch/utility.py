@@ -46,19 +46,56 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
+def _leaf_to_tensor(leaf, device) -> torch.Tensor:
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the
+        # bits across unchanged.
+        return torch.from_numpy(arr.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16).to(torch.device(device))
+    return torch.from_numpy(arr).to(torch.device(device))
+
+
+def _leaf_to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        import ml_dtypes  # ships with jax; needed only to hand bf16 back
+
+        return leaf.detach().cpu().view(torch.int16).numpy().view(
+            ml_dtypes.bfloat16)
+    return _to_numpy(leaf)
+
+
 def params_from_numpy(tree, device="cuda"):
     """A nested dict of numpy arrays (``ku``'s parameters) → the same dict
-    of torch tensors on ``device``, names, shapes and dtypes unchanged."""
+    of torch tensors on ``device``, names, shapes and dtypes unchanged
+    (``ml_dtypes.bfloat16`` arrays become ``torch.bfloat16`` bit for bit)."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(torch.device(device))
+    return _leaf_to_tensor(tree, device)
 
 
 def params_to_numpy(tree):
     """Inverse of :func:`params_from_numpy`: tensors → numpy arrays."""
     if isinstance(tree, Mapping):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return _to_numpy(tree)
+    return _leaf_to_numpy(tree)
+
+
+def state_dict_from_tree(tree, device="cuda") -> Dict[str, torch.Tensor]:
+    """``ku``'s nested parameters (flax names such as
+    ``block0/MultiHeadAttention_1/W_Q``) → a flat state dict of tensors on
+    ``device``, keyed ``block0.MultiHeadAttention_1.W_Q``, which the port's
+    modules load with ``load_state_dict(..., strict=True)``. Layouts and
+    dtypes stay ``ku``'s (bf16 bit for bit)."""
+    return {key.replace("/", "."): _leaf_to_tensor(value, device)
+            for key, value in _flatten(tree).items()}
+
+
+def tree_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`state_dict_from_tree`: a nested dict of numpy
+    arrays under ``ku``'s names."""
+    return _unflatten({key.replace(".", "/"): _leaf_to_numpy(value)
+                       for key, value in state_dict.items()})
 
 
 def save_model_jh5(spec: Any, params, name: str) -> None:

@@ -1,4 +1,5 @@
-"""ku_torch's CD kernel on the card against its plain version.
+"""ku_torch's kernels on the card against their plain versions: the CD
+kernel here, the serving kernels (flash forward, flash decoding) below.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -107,3 +108,165 @@ def test_rbm_fit_on_the_card_launches_the_kernel(device):
     assert rbm.last_scores.shape == (3 * 10,)
     assert torch.isfinite(rbm.last_scores).all()
     assert rbm.params["rbm_weight"].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The serving kernels: flash forward and flash decoding against their plain
+# versions. f32 rtol/atol 1e-4 (sums in another order); bf16 rtol 1e-2, just
+# above one bf16 ulp (2^-7 of the value: the output's own rounding can fall
+# either way), atol 2e-3 (the probabilities round to bf16 against another
+# running max, 2^-9 of each term); the f32 LSE 1e-4 in both.
+# ---------------------------------------------------------------------------
+
+from ku_torch.kernels import decode_attention as da  # noqa: E402
+from ku_torch.kernels import flash_attention as fa  # noqa: E402
+from ku_torch.nn import Transformer, generate  # noqa: E402
+
+SERVE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+FLASH_CASES = {
+    "gqa_window_softcap_rows": dict(b=2, h=4, hkv=2, n=37, kn=53, d=64, window=7,
+                                    softcap=1.5, q_offset=[16, 3]),
+    "mqa_segments_scalar": dict(b=2, h=4, hkv=1, n=70, kn=70, d=32,
+                                segments=True, q_offset=3, k_offset=1),
+    "noncausal_long_keys": dict(b=1, h=3, hkv=3, n=5, kn=130, d=128, causal=False),
+    "cache_view_rows": dict(b=3, h=8, hkv=2, n=65, kn=200, d=128, cache_view=True,
+                            q_offset=[0, 64, 100]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_fwd_matches_plain(device, case, dtype):
+    c = dict(FLASH_CASES[case])
+    b, h, hkv, n, kn, d = (c.pop(k) for k in ("b", "h", "hkv", "n", "kn", "d"))
+    g = torch.Generator(device=device).manual_seed(0)
+    q = torch.randn(b, h, n, d, generator=g, device=device).to(dtype)
+    if c.pop("cache_view", False):
+        k, v = (torch.randn(b, hkv, d, kn, generator=g, device=device).to(dtype)
+                .transpose(2, 3) for _ in range(2))
+    else:
+        k, v = (torch.randn(b, hkv, kn, d, generator=g, device=device).to(dtype)
+                for _ in range(2))
+    seg = None
+    if c.pop("segments", False):
+        seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=device),
+                         dim=1).values.to(torch.int32)
+    offsets = {key: torch.tensor(c.pop(key), dtype=torch.int32, device=device)
+               if isinstance(c.get(key), list) else c.pop(key)
+               for key in ("q_offset", "k_offset") if key in c}
+    kw = dict(softmax_scale=0.1, causal=c.pop("causal", True),
+              window=c.pop("window", None), logit_softcap=c.pop("softcap", None),
+              segment_ids=seg, **offsets)
+    before = fa.flash_fwd_cuda.launches
+    o_k, lse_k = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches == before + 1
+    o_p, lse_p = fa.flash_fwd_torch(q, k, v, **kw)
+    torch.testing.assert_close(o_k, o_p, **SERVE_TOL[dtype])
+    torch.testing.assert_close(lse_k, lse_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=3, hkv=2, g=1, d=64, s=300, lengths=[1, 300, 129], softcap=2.0),
+    dict(b=2, hkv=2, g=4, d=128, s=1024, lengths=[1024, 77], softcap=None),
+    dict(b=2, hkv=1, g=16, d=80, s=77, lengths=[77, 5], softcap=None, int8=True),
+])
+def test_decode_attention_matches_plain(device, case, dtype):
+    g = torch.Generator(device=device).manual_seed(1)
+    b, hkv, g_, d, s = case["b"], case["hkv"], case["g"], case["d"], case["s"]
+    q = torch.randn(b, hkv, g_, d, generator=g, device=device).to(dtype)
+    kw = dict(softmax_scale=0.05, logit_softcap=case["softcap"])
+    if case.get("int8"):
+        k, v = (torch.randint(-127, 128, (b, hkv, d, s), generator=g,
+                              device=device).to(torch.int8) for _ in range(2))
+        kw["k_scale"], kw["v_scale"] = (
+            torch.rand(b, hkv, s, generator=g, device=device) * 0.02 for _ in range(2))
+    else:
+        k, v = (torch.randn(b, hkv, d, s, generator=g, device=device).to(dtype)
+                for _ in range(2))
+    lengths = torch.tensor(case["lengths"], dtype=torch.int32, device=device)
+    before = da.decode_attention_cuda.launches
+    o_k = da.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(o_k, da.decode_attention_torch(q, k, v, lengths, **kw),
+                               **SERVE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_with_no_live_key_are_zero_on_the_card(device, dtype):
+    # Flash: keys start at global position 10, so causal rows 0..9 of row 0
+    # see none within a visited tile, and row 1 (queries at -80..-11) visits
+    # no tile at all. Decode: lengths 0 and -1.
+    g = torch.Generator(device=device).manual_seed(2)
+    q, k, v = (torch.randn(2, 2, 70, 32, generator=g, device=device).to(dtype)
+               for _ in range(3))
+    kw = dict(causal=True, k_offset=10, softmax_scale=0.1,
+              q_offset=torch.tensor([0, -80], dtype=torch.int32, device=device))
+    o, lse = fa.flash_fwd_cuda(q, k[:, :1], v[:, :1], **kw)
+    o_p, lse_p = fa.flash_fwd_torch(q, k[:, :1], v[:, :1], **kw)
+    assert torch.all(o[0, :, :10] == 0) and torch.all(o[1] == 0)
+    assert torch.all(lse[0, :, :10] == -1e30) and torch.all(lse[1] == -1e30)
+    torch.testing.assert_close(o, o_p, **SERVE_TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    qd = torch.randn(3, 2, 4, 64, generator=g, device=device).to(dtype)
+    cache = [torch.randn(3, 2, 64, 130, generator=g, device=device).to(dtype)
+             for _ in range(2)]
+    lengths = torch.tensor([0, 130, -1], dtype=torch.int32, device=device)
+    out = da.decode_attention_cuda(qd, *cache, lengths)
+    assert torch.all(out[0] == 0) and torch.all(out[2] == 0)
+    torch.testing.assert_close(out, da.decode_attention_torch(qd, *cache, lengths),
+                               **SERVE_TOL[dtype])
+
+
+def test_serving_wrappers_reject_what_the_kernels_do_not_take(device):
+    q = torch.zeros(1, 2, 4, 16, device=device)
+    with pytest.raises(ValueError, match="float32 or all"):
+        fa.flash_fwd_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_fwd_cuda(q, q.cpu(), q)
+    wide = torch.zeros(1, 2, 4, 160, device=device)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_fwd_cuda(wide, wide, wide)
+    qd = torch.zeros(1, 1, 2, 16, device=device)
+    cache = torch.zeros(1, 1, 16, 8, device=device)
+    lengths = torch.ones(1, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention_cuda(qd, cache, cache, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cuda(qd, cache.transpose(2, 3).contiguous().transpose(2, 3),
+                                 cache, lengths)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention_cuda(qd, cache.cpu(), cache, lengths)
+    with pytest.raises(ValueError, match="dtype"):
+        da.decode_attention_cuda(qd, cache.bfloat16(), cache.bfloat16(), lengths)
+    with pytest.raises(ValueError, match="up to 16"):
+        da.decode_attention_cuda(torch.zeros(1, 1, 17, 16, device=device), cache,
+                                 cache, lengths)
+
+
+def test_generate_on_the_card_goes_through_both_kernels(device):
+    """A tiny f32 LM: generate through the kernels emits the ids of the
+    plain paths (use_flash=False, flash_decode=False)."""
+    torch.manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    kw = dict(causal=True, rope=True, num_kv_head=2, max_decode_len=64,
+              device=device, generator=gen)
+    fast = Transformer(4, 32, use_flash=True, **kw)
+    plain = Transformer(4, 32, use_flash=False, flash_decode=False, **kw)
+    plain.load_state_dict(fast.state_dict())
+    table = torch.randn(50, 32, device=device)
+    prompts = torch.randint(0, 50, (3, 9), device=device)
+    lens = torch.tensor([9, 4, 6], dtype=torch.int32, device=device)
+    io = dict(embed=lambda i, p=None: table[i], readout=lambda y: y @ table.T,
+              prompt_lengths=lens, return_logprobs=True)
+    f0, d0 = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    ids, lps = generate(fast, prompts, 12, **io)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches - f0 == 2
+    assert da.decode_attention_cuda.launches - d0 == 2 * 11
+    ids_p, lps_p = generate(plain, prompts, 12, **io)
+    assert torch.equal(ids, ids_p)
+    torch.testing.assert_close(lps, lps_p, rtol=1e-4, atol=1e-4)
