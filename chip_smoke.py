@@ -60,6 +60,44 @@ Phases (any failure raises and the script exits non-zero):
    decode kernel alone under the profiler too, warm and cold, so that
    `ms` and `path_ms` are also compared by one clock.
 
+9. (Run beside phase 6.) Paged flash decoding (kernel #7) against its
+   plain version on the card:
+   f32 (rtol/atol 1e-4), bf16 and int8 pools with scales (the bf16 limits
+   above for bf16 queries); pages of 16 and 256 slots over tables in
+   permuted order whose dead tails point at one pool page poisoned with
+   NaN (NaN scales for int8 pools); ragged lengths including 1 and one past
+   the table's end; G 4, D 128. Outputs finite. With an identity table and
+   one page as wide as the cache, it agrees with the dense kernel (1e-4).
+10. (Run after phase 7's f32 part.) The same f32 LM with a paged cache
+   (256-slot pages, max_decode_len
+   2,048, so 8 pages a row): 8 prompts of 640..1,024 tokens, right-padded
+   to 1,024, prefilled, then 16 greedy steps. Its outputs agree with the
+   dense-cache model's (max_decode_len 2,048) at rtol/atol 1e-4, with f32
+   pools and with int8 ones (kv_cache_dtype='int8'), and with f32 pools
+   through its kernels with its plain paths.
+11. bf16 paged `generate` on those prompts, 256 steps: the flash kernel
+   launches 32 times, the paged decode kernel 32 × 255, the dense one not
+   at all. Timed as in phase 8 (decode slope, prefill rate) beside the
+   dense-cache `generate` on the same prompts, one run each; then, since
+   the host clock wanders more than that, every decode step timed alone,
+   64 after a prefill, in the order paged, dense, dense, paged (medians).
+12. bf16 paged `ContinuousBatcher`: 8 slots, prompt_len 256, chunk (8, 32),
+   a pool of 24 pages (scratch page 0 and 23 allocatable) against the 64
+   that 8 slots × 8 pages would take, a 300-token shared prefix (one full
+   page and a 44-token tail), 24 requests of 64..704 prompt tokens with
+   budgets 32..256. Admissions defer (shown once by driving submit / step);
+   the timed `serve` answers every request with exactly its budget, within
+   23 pages, with the prefix on 2 of them; the paged decode kernel launches
+   32 times a step and the flash kernel 32 times a prefill round and once
+   for the prefix.
+13. The paged kernel alone at the path's shape (paged generate's middle
+   step: lengths prompt + 128, B 8, pg 256, MP 8, bf16), cold in L2 and
+   warm, against its bound (the live K/V bytes at the card's memory rate),
+   its plain version and the dense kernel at the same lengths; and its
+   device time a launch on the path from a profiler window over 8 paged
+   decode steps. No single PyTorch call reads through a page table, so its
+   `library_ms` is null.
+
 The last lines are the `kernels` JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
 """
@@ -84,6 +122,8 @@ from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
 
+DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
+
 N, V_DIM, H_DIM, BATCH, EPOCHS, K = 60032, 784, 128, 128, 3, 1
 LR = 1e-3
 DEVICE = "cuda"
@@ -93,6 +133,11 @@ DEVICE = "cuda"
 LM_BLOCKS, LM_HEADS, LM_KV_HEADS, LM_D, LM_VOCAB, LM_MAX_LEN = 16, 16, 4, 2048, 1024, 1024
 GEN_B, GEN_P, GEN_STEPS = 8, 128, 256
 CB_SLOTS, CB_PROMPT_LEN, CB_CHUNK, CB_REQUESTS = 8, 64, (8, 32), 24
+# The paged phases: 256-slot pages over a 2,048-slot window (8 pages a row),
+# prompts of 640..1,024 tokens padded to 1,024; the paged batcher's pool,
+# prompt width, shared prefix and request lengths.
+PAGE, PAGED_MAX_LEN, PG_P, PG_MIN = 256, 2048, 1024, 640
+CBP_PAGES, CBP_PROMPT_LEN, CBP_PREFIX, CBP_MIN, CBP_MAX = 24, 256, 300, 64, 704
 FLUSH_BYTES = 256 << 20  # written before each cold call: past the 50 MB L2
 
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
@@ -460,6 +505,29 @@ class LM(torch.nn.Module):
         return (x, cache) if decode else x
 
 
+def zero_counts():
+    fa.flash_fwd_cuda.launches = 0
+    for k in DECODE_KERNELS:
+        k.launches = 0
+
+
+def counts():
+    """(flash, dense decode, paged decode) launches since zero_counts()."""
+    return (fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches,
+            da.decode_attention_paged_cuda.launches)
+
+
+def set_cache(model, max_decode_len, kv_page_size=None, kv_num_pages=None,
+              kv_cache_dtype=None):
+    """Re-shape every attention layer's KV cache (the weights stay): dense or
+    paged, f32/bf16 or int8, for the next cache the model creates."""
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.max_decode_len = max_decode_len
+            m.kv_page_size, m.kv_num_pages = kv_page_size, kv_num_pages
+            m.kv_cache_dtype = kv_cache_dtype
+
+
 def set_attention_paths(model, kernels: bool):
     for m in model.modules():
         if isinstance(m, MultiHeadAttention):
@@ -583,10 +651,11 @@ def log_profile(what, wall, rows, clocks, steps=1):
 
 
 @torch.no_grad()
-def profile_path(lm, embed, readout, prompts, lens, steps=8):
+def profile_path(lm, embed, readout, prompts, lens, steps=8, decode_key="DenseRows"):
     """Where the path's time goes: one prefill, then `steps` greedy decode
     steps, each under the profiler. Returns the device ms per launch of the
-    flash kernel (prefill) and of the decode kernel (decode steps)."""
+    flash kernel (prefill) and of the decode kernel whose name holds
+    `decode_key` (decode steps: DenseRows or PagedRows)."""
     x0 = embed(prompts)
     prefill = lambda: lm([x0], decode=True, cache={}, prompt_lengths=lens)  # noqa: E731
     prefill()  # warm the profiler's first-use costs out of the window
@@ -607,12 +676,338 @@ def profile_path(lm, embed, readout, prompts, lens, steps=8):
     run()
     wall, rows, clocks = profiled(run)
     log_profile(f"{steps} decode steps", wall, rows, clocks, steps)
-    return flash_path_ms, per_launch_ms(rows, "decode_kernel")
+    return flash_path_ms, per_launch_ms(rows, decode_key)
+
+# ---------------------------------------------------------------------------
+# The paged cache (phases 9-13).
+# ---------------------------------------------------------------------------
+
+
+def paged_case(dev, dtype, pg, mp, lengths, *, int8=False, softcap=None,
+               seed=0) -> float:
+    """One paged read, kernel against plain on the same inputs: B·MP + 1
+    pool pages in permuted order, the page no row owns poisoned with NaN
+    (its scales, for int8 pools) and every dead table entry pointing at
+    it."""
+    b, hkv, g_, d = len(lengths), LM_KV_HEADS, LM_HEADS // LM_KV_HEADS, LM_D // LM_HEADS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pool = b * mp + 1
+    order = torch.randperm(n_pool, generator=g, device=dev)
+    poison, tbl = order[-1], order[:-1].view(b, mp).to(torch.int32)
+    for row, n in enumerate(lengths):
+        tbl[row, max(0, -(-n // pg)):] = poison
+    q = torch.randn(b, hkv, g_, d, generator=g, device=dev).to(dtype)
+    kw = dict(softmax_scale=1.0 / math.sqrt(LM_D), logit_softcap=softcap)
+    if int8:
+        k = torch.randint(-127, 128, (n_pool, hkv, d, pg), generator=g, device=dev).to(torch.int8)
+        v = torch.randint(-127, 128, (n_pool, hkv, d, pg), generator=g, device=dev).to(torch.int8)
+        kw["k_scale"] = torch.rand(n_pool, hkv, pg, generator=g, device=dev) * 0.02
+        kw["v_scale"] = torch.rand(n_pool, hkv, pg, generator=g, device=dev) * 0.02
+        kw["k_scale"][poison] = kw["v_scale"][poison] = float("nan")
+    else:
+        k = torch.randn(n_pool, hkv, d, pg, generator=g, device=dev).to(dtype)
+        v = torch.randn(n_pool, hkv, d, pg, generator=g, device=dev).to(dtype)
+        k[poison] = v[poison] = float("nan")
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    o_k = da.decode_attention_paged_cuda(q, k, v, tbl, lengths, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o_k).all()), "paged kernel output is not finite")
+    o_p = da.decode_attention_paged_torch(q, k, v, tbl, lengths, **kw)
+    torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
+    diff = _max_diff(o_k, o_p)
+    log(f"  paged {str(dtype)[6:]} B{b} Hkv{hkv} G{g_} D{d} pg{pg} MP{mp} int8 {int8} "
+        f"softcap {softcap} lengths {lengths.tolist()}: max abs diff {diff:.3e}")
+    return diff
+
+
+def paged_kernels_vs_plain(dev) -> float:
+    """Phase 9; returns the largest abs difference."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for pg, mp in ((16, 72), (PAGE, PAGED_MAX_LEN // PAGE)):
+            window = pg * mp
+            lengths = [1, pg, 300, 640, 1000, window - 7, window + 100, 777]
+            for int8 in (False, True):
+                worst = max(worst, paged_case(dev, dtype, pg, mp, lengths, int8=int8,
+                                              softcap=2.0 if int8 else None,
+                                              seed=pg + int8))
+    # An identity table with one page as wide as the cache is the dense read.
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(GEN_B, LM_KV_HEADS, 4, 128, generator=g, device=dev)
+    k, v = (torch.randn(GEN_B, LM_KV_HEADS, 128, LM_MAX_LEN, generator=g, device=dev)
+            for _ in range(2))
+    lengths = torch.tensor([1, 64, 200, 511, 512, 700, 1000, 1024], dtype=torch.int32,
+                           device=dev)
+    ident = torch.arange(GEN_B, dtype=torch.int32, device=dev)[:, None]
+    o_p = da.decode_attention_paged_cuda(q, k, v, ident, lengths)
+    o_d = da.decode_attention_cuda(q, k, v, lengths)
+    torch.testing.assert_close(o_p, o_d, rtol=1e-4, atol=1e-4)
+    log(f"  paged with an identity table and pg = S = {LM_MAX_LEN} vs the dense kernel: "
+        f"max abs diff {_max_diff(o_p, o_d):.3e}")
+    return worst
+
+
+def paged_workload(dev):
+    """8 prompts of 640..1,024 tokens, right-padded to 1,024, from a seed."""
+    rng = np.random.default_rng(1)
+    lens = np.linspace(PG_MIN, PG_P, GEN_B).astype(np.int64)
+    prompts = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(GEN_B, PG_P))).to(dev)
+    return prompts, torch.from_numpy(lens).to(torch.int32).to(dev)
+
+
+@torch.no_grad()
+def run_lm(lm, table, prompts, lens, fed=None, steps=16):
+    """Prefill, then `steps` decode steps fed greedy tokens (or `fed`);
+    returns (every output, the fed tokens)."""
+    y, cache = lm([table[prompts]], decode=True, cache={}, prompt_lengths=lens)
+    outs = [y]
+    tok = (y[torch.arange(GEN_B, device=y.device), lens.long() - 1] @ table.T).argmax(-1)
+    toks = []
+    for i in range(steps):
+        tok = tok if fed is None else fed[:, i]
+        toks.append(tok)
+        y, cache = lm([table[tok[:, None]]], decode=True, cache=cache)
+        outs.append(y)
+        tok = (y[:, 0] @ table.T).argmax(-1)
+    torch.cuda.synchronize()
+    return outs, torch.stack(toks, 1)
+
+
+@torch.no_grad()
+def step_times(lm, embed, readout, prompts, lens, steps=64):
+    """(host s of one prefill, host s of each of `steps` greedy decode
+    steps after it, each ended by a synchronise)."""
+    x0 = embed(prompts)
+    out = []
+    t_pre = wall_s(lambda: out.append(lm([x0], decode=True, cache={},
+                                         prompt_lengths=lens)))
+    y, cache = out[0]
+    tok = readout(y[torch.arange(GEN_B, device=y.device), lens.long() - 1][:, None]
+                  )[:, 0].argmax(-1)
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        y, cache = lm([embed(tok[:, None])], decode=True, cache=cache)
+        tok = readout(y)[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return t_pre, times
+
+
+def _agree(a_outs, b_outs, what) -> float:
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(a_outs, b_outs)):
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite output at step {i}")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=f"{what}, step {i}")
+        worst = max(worst, _max_diff(a, b))
+    log(f"  {what}: max abs diff {worst:.3e} over the prefill and "
+        f"{len(a_outs) - 1} steps")
+    return worst
+
+
+def paged_f32_phase(lm32, table32, prompts, lens, steps=16) -> float:
+    """Phase 10: the f32 LM with a paged cache against the dense cache, f32
+    and int8, and with f32 pools through its kernels against its plain
+    paths; returns the largest difference between kernels and plain
+    paths."""
+    paged = dict(kv_page_size=PAGE)
+    set_cache(lm32, PAGED_MAX_LEN, **paged)
+    zero_counts()
+    p_outs, fed = run_lm(lm32, table32, prompts, lens, steps=steps)
+    want = (2 * LM_BLOCKS, 0, 2 * LM_BLOCKS * steps)
+    check(counts() == want, f"f32 paged run launched {counts()}, expected {want}")
+    log(f"f32 LM, paged cache (pg {PAGE}, MP {PAGED_MAX_LEN // PAGE}), prompt lengths "
+        f"{lens.tolist()}: launches (flash, dense, paged) {counts()}")
+    set_cache(lm32, PAGED_MAX_LEN)
+    _agree(p_outs, run_lm(lm32, table32, prompts, lens, fed, steps)[0],
+           "f32 paged vs dense cache")
+    set_cache(lm32, PAGED_MAX_LEN, **paged)
+    set_attention_paths(lm32, False)
+    err = _agree(p_outs, run_lm(lm32, table32, prompts, lens, fed, steps)[0],
+                 "f32 paged, kernels vs plain paths")
+    # int8 pools: against the int8 dense cache, both through the kernels.
+    # (Not kernels against plain paths at this depth: a 1e-6 difference in a
+    # layer's input moves some K/V across an int8 rounding edge, a step of
+    # 1/127 of the vector's largest value, far past 1e-4 downstream; the CPU
+    # tests hold the int8 paths against ku at small sizes.)
+    set_attention_paths(lm32, True)
+    set_cache(lm32, PAGED_MAX_LEN, kv_cache_dtype="int8", **paged)
+    p8 = run_lm(lm32, table32, prompts, lens, fed, steps)[0]
+    set_cache(lm32, PAGED_MAX_LEN, kv_cache_dtype="int8")
+    _agree(p8, run_lm(lm32, table32, prompts, lens, fed, steps)[0],
+           "f32 int8 paged vs int8 dense cache")
+    return err
+
+
+@torch.no_grad()
+def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> dict:
+    """Phases 11-13 on the bf16 LM; returns the paged kernel's entry."""
+    _, peak_bf16, peak_bw = peaks(name)
+    n_prompt = int(lens.sum())
+
+    def gen(steps):
+        return generate(lm, prompts, steps, embed=embed, readout=readout,
+                        prompt_lengths=lens, return_logprobs=True)
+
+    # 11. Paged generate: the main path of the paged kernel.
+    set_cache(lm, PAGED_MAX_LEN, kv_page_size=PAGE)
+    zero_counts()
+    ids, lps = gen(GEN_STEPS)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = (2 * LM_BLOCKS, 0, 2 * LM_BLOCKS * (GEN_STEPS - 1))
+    check(launches == want, f"paged generate launched (flash, dense, paged) "
+          f"{launches}, expected {want}")
+    check(ids.shape == (GEN_B, GEN_STEPS) and bool(torch.isfinite(lps).all())
+          and bool((lps <= 0).all()), "paged generate: bad ids or logprobs")
+    log(f"paged generate bf16 {GEN_B} x {GEN_STEPS} steps after prompts of "
+        f"{lens.tolist()}: mean logprob {float(lps.float().mean()):.4f}, first row "
+        f"{ids[0, :12].tolist()}; launches (flash, dense, paged) {launches}")
+
+    rates = {}
+    for layout, kw in (("paged", dict(kv_page_size=PAGE)), ("dense", {})):
+        set_cache(lm, PAGED_MAX_LEN, **kw)
+        gen(GEN_STEPS // 2)  # warm this layout's allocations
+        t_full = wall_s(lambda: gen(GEN_STEPS))
+        t_half = wall_s(lambda: gen(GEN_STEPS // 2))
+        x0 = embed(prompts)
+        t_pre = min(wall_s(lambda: lm([x0], decode=True, cache={}, prompt_lengths=lens))
+                    for _ in range(2))
+        rates[layout] = (GEN_B * (GEN_STEPS - GEN_STEPS // 2) / (t_full - t_half),
+                         n_prompt / t_pre, GEN_B * GEN_STEPS / t_full)
+        log(f"{layout}-cache generate ({PAGED_MAX_LEN}-slot window): {GEN_STEPS} steps "
+            f"{t_full:.4f} s, {GEN_STEPS // 2} steps {t_half:.4f} s; decode "
+            f"{rates[layout][0]:.1f} tokens/s (slope), "
+            f"{1e3 * (t_full - t_half) / (GEN_STEPS - GEN_STEPS // 2):.3f} ms a step; "
+            f"prefill {n_prompt} tokens in {t_pre * 1e3:.3f} ms, {rates[layout][1]:.1f} "
+            f"tokens/s; whole run {rates[layout][2]:.1f} tokens/s")
+    log(f"paging costs (one run each): decode {rates['paged'][0] / rates['dense'][0]:.3f}, "
+        f"prefill {rates['paged'][1] / rates['dense'][1]:.3f}, whole run "
+        f"{rates['paged'][2] / rates['dense'][2]:.3f} of the dense cache's rate")
+    # The host clock of a one-card machine wanders by more than the gap a
+    # slope from one run of each can show: so also every decode step timed
+    # alone, 64 after a prefill, in the order paged, dense, dense, paged.
+    steps = {"paged": [], "dense": []}
+    pre = {"paged": [], "dense": []}
+    for layout in ("paged", "dense", "dense", "paged"):
+        set_cache(lm, PAGED_MAX_LEN, **(dict(kv_page_size=PAGE) if layout == "paged" else {}))
+        t_pre, times = step_times(lm, embed, readout, prompts, lens)
+        pre[layout].append(t_pre)
+        steps[layout] += times
+    med = {}
+    for layout in ("paged", "dense"):
+        q1, med[layout], q3 = np.percentile(steps[layout], [25, 50, 75])
+        log(f"{layout}-cache decode steps, one at a time ({len(steps[layout])}): median "
+            f"{med[layout] * 1e3:.3f} ms (quartiles {q1 * 1e3:.3f}..{q3 * 1e3:.3f}), "
+            f"{GEN_B / med[layout]:.1f} tokens/s; prefill best of 2 "
+            f"{min(pre[layout]) * 1e3:.3f} ms, {n_prompt / min(pre[layout]):.1f} tokens/s")
+    log(f"paging costs (step medians): decode {med['dense'] / med['paged']:.3f}, prefill "
+        f"{min(pre['dense']) / min(pre['paged']):.3f} of the dense cache's rate")
+
+    # 12. The paged batcher over a 24-page pool with a shared prefix.
+    set_cache(lm, PAGED_MAX_LEN, kv_page_size=PAGE, kv_num_pages=CBP_PAGES)
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, LM_VOCAB, size=(CBP_PREFIX,))
+    reqs = [rng.integers(0, LM_VOCAB, size=(int(n),))
+            for n in rng.integers(CBP_MIN, CBP_MAX + 1, size=CB_REQUESTS)]
+    budgets = [int(b) for b in rng.integers(32, 257, size=CB_REQUESTS)]
+    cb = ContinuousBatcher(lm, embed=embed, readout=readout, num_slots=CB_SLOTS,
+                           prompt_len=CBP_PROMPT_LEN, max_decode_len=PAGED_MAX_LEN,
+                           chunk=CB_CHUNK)
+    cb.reset(shared_prefix=prefix)
+    for r, b in zip(reqs, budgets):
+        cb.submit(r, b)
+    deferred_at = None
+    for step in range(64):
+        cb._admit()  # what step() admits first: a free slot left with requests queued
+        if cb._queue and not cb._active.all():
+            deferred_at = (step, int((~cb._active).sum()), len(cb._queue),
+                           len(cb._free_pages))
+            break
+        cb.step()
+    check(deferred_at is not None, "no admission deferred for want of pages")
+    log(f"paged batcher: at step {deferred_at[0]} {deferred_at[1]} slot(s) free with "
+        f"{deferred_at[2]} request(s) queued and {deferred_at[3]} free page(s): deferred")
+    cb.reset(force=True)
+    zero_counts()
+    out = []
+    t_cb = wall_s(lambda: out.append(cb.serve(reqs, budgets, shared_prefix=prefix)))
+    results, st = out[0], cb.last_stats
+    cb_flash, cb_dense, cb_paged = counts()
+    check(len(results) == CB_REQUESTS and all(
+        r is not None and len(r) == b for r, b in zip(results, budgets)),
+        "paged batcher: a request was not answered with exactly its budget")
+    check(st["shared_prefix_pages"] == 2 and st["peak_pages_in_use"] <= CBP_PAGES - 1,
+          f"paged batcher pages: {st}")
+    steps_run = (st["decoded_tokens"] + st["wasted_slot_steps"]) // CB_SLOTS
+    check(cb_dense == 0 and cb_paged == 2 * LM_BLOCKS * steps_run
+          and cb_flash == 2 * LM_BLOCKS * (st["prefill_rounds"] + 1),
+          f"paged batcher launched (flash, dense, paged) {counts()} for "
+          f"{st['prefill_rounds']} prefill rounds + the prefix and {steps_run} steps")
+    cb_tps = st["decoded_tokens"] / t_cb
+    log(f"paged ContinuousBatcher: {CB_REQUESTS} requests, prompts "
+        f"{min(len(r) for r in reqs)}..{max(len(r) for r in reqs)} after a "
+        f"{CBP_PREFIX}-token prefix, budgets {min(budgets)}..{max(budgets)}, pool "
+        f"{CBP_PAGES} pages, all answered; last_stats {st}; launches (flash, dense, "
+        f"paged) {counts()}; {st['decoded_tokens']} tokens in {t_cb:.4f} s, "
+        f"{cb_tps:.1f} tokens/s, {cb_tps / rates['paged'][2]:.3f} of paged generate's "
+        f"whole-run rate")
+    del cb
+
+    # 13. The kernel alone at the path's shape, and on the path.
+    set_cache(lm, PAGED_MAX_LEN, kv_page_size=PAGE)
+    _, paged_path_ms = profile_path(lm, embed, readout, prompts, lens,
+                                    decode_key="PagedRows")
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    hd, mp = LM_D // LM_HEADS, PAGED_MAX_LEN // PAGE
+    kp, vp = (torch.randn(GEN_B * mp, LM_KV_HEADS, hd, PAGE, generator=g, device=dev).to(bf)
+              for _ in range(2))
+    tbl = torch.arange(GEN_B * mp, dtype=torch.int32, device=dev).view(GEN_B, mp)
+    qd = torch.randn(GEN_B, LM_KV_HEADS, LM_HEADS // LM_KV_HEADS, hd, generator=g,
+                     device=dev).to(bf)
+    mid = lens + GEN_STEPS // 2
+    kw = dict(softmax_scale=1.0 / math.sqrt(LM_D))
+    paged_call = lambda: da.decode_attention_paged_cuda(qd, kp, vp, tbl, mid, **kw)  # noqa: E731
+    ms = timed_cold_ms(paged_call, 300)
+    warm_ms = timed_ms(paged_call, 300)
+    plain_ms = timed_cold_ms(lambda: da.decode_attention_paged_torch(
+        qd, kp, vp, tbl, mid, **kw), 30)
+    ck, cv = (da.gather_pages(x, tbl).contiguous() for x in (kp, vp))
+    dense_ms = timed_cold_ms(lambda: da.decode_attention_cuda(qd, ck, cv, mid, **kw), 300)
+    bound_ms, bound_by = decode_bound(GEN_B, LM_HEADS, LM_KV_HEADS, hd, mid.tolist(), 2,
+                                      peak_bf16, peak_bw)
+    live_mb = 2 * LM_KV_HEADS * int(mid.sum()) * hd * 2 / 1e6
+    log(f"decode_attention_paged at B{GEN_B} Hkv{LM_KV_HEADS} G4 D{hd} pg{PAGE} MP{mp} "
+        f"bf16, lengths {mid.tolist()} ({live_mb:.1f} MB of live K/V), cold L2: kernel "
+        f"{ms:.4f} ms (warm {warm_ms:.4f} ms), plain {plain_ms:.4f} ms, dense kernel "
+        f"at the same lengths {dense_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+        f"on the path (profiler, the 8 steps after the prefill) {paged_path_ms:.4f} ms "
+        f"a launch")
+    log("decode_attention_paged library_ms: null, no single PyTorch call reads "
+        "attention through a page table")
+    return {
+        "name": "decode_attention_paged",
+        "route": "cuda",
+        "source": "ku_torch/csrc/decode_attention.cu",
+        "replaces": "ku/pallas/decode_attention.py:224",
+        "launches": launches[2],
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "warm_ms": warm_ms,
+        "path_ms": paged_path_ms,
+        "plain_ms": plain_ms,
+        "dense_ms": dense_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 def serving_path(dev, name) -> list:
-    """Phases 6-8; returns the entries of the two serving kernels."""
+    """Phases 6-13; returns the entries of the three serving kernels."""
     flash_err, decode_err = serving_kernels_vs_plain(dev)
+    paged_err = paged_kernels_vs_plain(dev)
     _, peak_bf16, peak_bw = peaks(name)
 
     # 7. The LM at full width, weights from a seed.
@@ -630,6 +1025,9 @@ def serving_path(dev, name) -> list:
     log(f"serving LM: {n_params / 1e9:.3f}B parameters, built in "
         f"{time.perf_counter() - t0:.2f} s; prompt lengths {lens_np.tolist()}")
     f32_err = f32_kernels_vs_plain(lm32, table32, prompts, lens)
+    paged_prompts, paged_lens = paged_workload(dev)
+    paged_f32_err = paged_f32_phase(lm32, table32, paged_prompts, paged_lens)
+    set_cache(lm32, LM_MAX_LEN)
 
     lm = copy.deepcopy(lm32).to(torch.bfloat16)
     del lm32
@@ -642,10 +1040,11 @@ def serving_path(dev, name) -> list:
         return generate(lm, prompts, steps, embed=embed, readout=readout,
                         prompt_lengths=lens, return_logprobs=True)
 
-    fa.flash_fwd_cuda.launches = da.decode_attention_cuda.launches = 0
+    zero_counts()
     ids, lps = gen(GEN_STEPS)
     torch.cuda.synchronize()
-    gen_flash, gen_decode = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    gen_flash, gen_decode, gen_paged = counts()
+    check(gen_paged == 0, f"dense generate launched the paged kernel {gen_paged} times")
     check(ids.shape == (GEN_B, GEN_STEPS) and lps.shape == (GEN_B, GEN_STEPS),
           f"generate shapes {tuple(ids.shape)}, {tuple(lps.shape)}")
     check(bool(((ids >= 0) & (ids < LM_VOCAB)).all()), "ids out of the vocabulary")
@@ -666,10 +1065,11 @@ def serving_path(dev, name) -> list:
             for n in rng.integers(16, 193, size=CB_REQUESTS)]
     budgets = [int(b) for b in rng.integers(32, 257, size=CB_REQUESTS)]
     cb.reset()  # builds the cache spec (one throwaway prefill) before counting
-    fa.flash_fwd_cuda.launches = da.decode_attention_cuda.launches = 0
+    zero_counts()
     results = cb.serve(reqs, budgets)
     torch.cuda.synchronize()
-    cb_flash, cb_decode = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    cb_flash, cb_decode, cb_paged = counts()
+    check(cb_paged == 0, f"dense batcher launched the paged kernel {cb_paged} times")
     st = cb.last_stats
     check(len(results) == CB_REQUESTS and all(
         r is not None and len(r) == b for r, b in zip(results, budgets)),
@@ -748,9 +1148,9 @@ def serving_path(dev, name) -> list:
     # path_ms: one clock for all three.
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     wall, rows, clocks = profiled(lambda: [decode() for _ in range(64)])
-    alone_warm_ms = per_launch_ms(rows, "decode_kernel")
+    alone_warm_ms = per_launch_ms(rows, "DenseRows")
     wall, rows, clocks = profiled(lambda: [(flush.zero_(), decode()) for _ in range(64)])
-    alone_cold_ms = per_launch_ms(rows, "decode_kernel")
+    alone_cold_ms = per_launch_ms(rows, "DenseRows")
     del flush
     log(f"profile, 64 standalone decode launches: {alone_warm_ms:.4f} ms each warm, "
         f"{alone_cold_ms:.4f} ms each cold; SM clock {clock_range(clocks)}")
@@ -767,6 +1167,8 @@ def serving_path(dev, name) -> list:
         f"(profiler, the 8 steps after the prefill) {decode_path_ms:.4f} ms a launch")
     log(f"max abs diff kernel vs plain: flash {flash_err:.3e}, decode "
         f"{decode_err:.3e}; f32 LM through the kernels vs plain {f32_err:.3e}")
+    paged = paged_serving(dev, name, lm, embed, readout, paged_prompts, paged_lens,
+                          max(paged_err, paged_f32_err))
     return [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -793,7 +1195,7 @@ def serving_path(dev, name) -> list:
         "bound_ms": decode_bound_ms,
         "bound_by": decode_by,
         "library_ms": decode_lib_ms,
-    }]
+    }, paged]
 
 
 def main() -> int:

@@ -3,10 +3,11 @@
 So far it holds the RBM / DBN trainer (:mod:`ku_torch.ebm`), whose CD-k run
 is one launch of a hand-written Hopper kernel
 (:mod:`ku_torch.kernels.cd_gibbs`); the attention, transformer and serving
-stack (:mod:`ku_torch.nn`: ``MultiHeadAttention``, ``Transformer``,
-``generate``, a dense-cache ``ContinuousBatcher``), whose prefill and
-per-token reads go through hand-written kernels for flash attention and
-flash decoding (:mod:`ku_torch.kernels.flash_attention`,
+stack (:mod:`ku_torch.nn`: ``MultiHeadAttention`` with dense, paged and
+int8 KV caches, ``Transformer``, ``generate``, the ``ContinuousBatcher``
+over a dense cache or a page pool), whose prefill and per-token reads go
+through hand-written kernels for flash attention and flash decoding, dense
+and paged (:mod:`ku_torch.kernels.flash_attention`,
 :mod:`ku_torch.kernels.decode_attention`); the JSON config contract and
 seed streams (:mod:`ku_torch.core`); and the JSON+npz weight files and
 state-dict conversion shared with ``ku`` (:mod:`ku_torch.utility`). Entry

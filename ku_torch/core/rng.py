@@ -15,6 +15,8 @@ is done in 16-bit limbs so that no partial product overflows.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 PHILOX_M0 = 0xD2511F53
@@ -103,3 +105,11 @@ def philox_uniforms(seed: int, step: int, n_streams: int, rows: int,
     words = torch.stack(philox4x32(c0, c1, c2, c3, seed, step), dim=-1)
     words = words.reshape(n_streams, rows, 4 * quads)[..., :cols]
     return uniform_from_bits(words)
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Standard normals from two uniforms in [0, 1), the first clamped to
+    1e-7 so that its log is finite: sqrt(-2 ln u1) cos(2 pi u2), as the CD
+    kernel draws its Gaussian visibles."""
+    u1 = u1.clamp_min(1e-7)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)

@@ -33,12 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from pathlib import Path
 
 import torch
 
-from ku_torch.core.rng import philox_uniforms
+from ku_torch.core.rng import box_muller, philox_uniforms
 from ku_torch.kernels import _build
 
 MODE_VISIBLE_BERNOULLI = 0
@@ -190,9 +189,7 @@ def cd_train_torch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
             if mode == MODE_VISIBLE_BERNOULLI:
                 v_neg = (u[1 + 3 * i, :, :v_dim] < torch.sigmoid(stat)).to(w.dtype)
             else:
-                u1 = u[1 + 3 * i, :, :v_dim].clamp_min(1e-7)
-                u2 = u[2 + 3 * i, :, :v_dim]
-                z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+                z = box_muller(u[1 + 3 * i, :, :v_dim], u[2 + 3 * i, :, :v_dim])
                 v_neg = stat + (_INV_SQRT2 * z if complex_mode else z)
             v_neg = v_neg * m
             act_neg = act(v_neg)

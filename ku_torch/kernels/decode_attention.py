@@ -1,23 +1,25 @@
-"""Flash-decoding over a dense KV cache, as one CUDA kernel, with its plain
-version.
+"""Flash-decoding over a dense KV cache and over a paged one, as CUDA
+kernels, with their plain versions.
 
-Port of ``ku/pallas/decode_attention.py`` (dense part). The kernel,
-``ku_torch/csrc/decode_attention.cu``, replaces
-``ku/pallas/decode_attention.py::_kernel``: one block per (row, KV head)
-reads the row's live cache prefix once and folds it into an online softmax
-for the G query heads of that KV head. Its source note says what bounds it
-on an H100 (bytes; at the serving shapes, its launch latency) and what the
-design does about that.
+Port of ``ku/pallas/decode_attention.py``. One source,
+``ku_torch/csrc/decode_attention.cu``, holds one online-softmax fold with two
+ways of addressing a slot: it replaces ``_kernel`` (dense) and the three
+paged variants ``_paged_kernel``, ``_paged_kernel_v3`` and
+``_paged_kernel_v4``. One block per (row, KV head) reads the row's live
+slots once and folds them for the G query heads of that KV head. Its source
+note says what bounds it on an H100 (bytes; at the serving shapes, latency)
+and what the design does about that.
 
-- :func:`decode_attention_cuda` launches the kernel. It takes CUDA tensors
-  only and adds one to ``decode_attention_cuda.launches`` per launch.
-- :func:`decode_attention_torch` is the plain version: the same function in
-  torch ops, on tensors of any device.
-- :func:`decode_attention` picks by the device of ``q``: the kernel for a
-  CUDA tensor, the plain version for a CPU tensor. It never falls back from
-  one to the other.
+- :func:`decode_attention_cuda` / :func:`decode_attention_paged_cuda` launch
+  the kernel. They take CUDA tensors only and add one to their
+  ``launches`` per launch.
+- :func:`decode_attention_torch` / :func:`decode_attention_paged_torch` are
+  the plain versions: the same function in torch ops, on any device.
+- :func:`decode_attention` / :func:`decode_attention_paged` pick by the
+  device of ``q``: the kernel for a CUDA tensor, the plain version for a CPU
+  tensor. They never fall back from one to the other.
 
-Contract, as ``ku.pallas.decode_attention.decode_attention``: ``q`` is
+Dense contract, as ``ku.pallas.decode_attention.decode_attention``: ``q`` is
 (B, Hkv, G, D), the cache ``k``/``v`` is (B, Hkv, D, S)/(B, Hkv, Dv, S) with
 the slot axis minor, ``lengths`` (B,) int32 counts each row's live slots
 (values above S read all S), and int8 caches come with (B, Hkv, S) f32
@@ -25,6 +27,18 @@ the slot axis minor, ``lengths`` (B,) int32 counts each row's live slots
 accumulated in f32, with the probabilities rounded to ``q``'s dtype before
 the PV product; a row of length <= 0 gets 0. ``softmax_scale`` defaults to
 1/sqrt(D). On the card G is at most 16 and Dv at most 128.
+
+Paged contract, as ``ku.pallas.decode_attention.decode_attention_paged``:
+the pools are (NP, Hkv, D, pg)/(NP, Hkv, Dv, pg), slot axis minor, int8
+pools with (NP, Hkv, pg) f32 scales; ``page_table`` (B, MP) int32 names the
+pool page of each of a row's logical pages. The row reads exactly the dense
+function over its gathered (B, Hkv, D, MP·pg) view, without building it:
+only its first ceil(length/pg) table entries are read (a dead entry may
+hold anything, even a page of NaN), a length above MP·pg reads the whole
+window unmasked, and a row of length <= 0 gets 0 (``ku``'s path never makes
+one). Any ``pg`` >= 1 (``ku``'s ``pg % 128`` is a constraint of the TPU's
+compiler). ``pipelined`` (False, True or ``"v4"``) is accepted and ignored:
+``ku``'s three variants differ only in DMA scheduling and are bit-exact.
 """
 
 from __future__ import annotations
@@ -51,85 +65,187 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 6 + [f, f, i, i, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_paged_launch.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
+    lib.decode_attention_paged_launch.restype = i
     lib.decode_attention_error_string.argtypes = [i]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, lengths, k_scale, v_scale):
+def _check(q, k, v, lengths, k_scale, v_scale, page_table=None):
+    """Shapes and dtypes; K/V's first axis is B (dense) or the pool's NP
+    (paged, with ``page_table``)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("decode_attention takes q (B, Hkv, G, D) and a cache "
-                         "(B, Hkv, D, S)")
+                         "(B, Hkv, D, S) or pools (NP, Hkv, D, pg)")
     bsz, hkv, _, d = q.shape
+    units = bsz if page_table is None else k.shape[0]
     s = k.shape[3]
-    if k.shape[:3] != (bsz, hkv, d) or v.shape[:2] != (bsz, hkv) \
+    if k.shape[:3] != (units, hkv, d) or v.shape[:2] != (units, hkv) \
             or v.shape[3] != s:
         raise ValueError(f"cache shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not fit q {tuple(q.shape)}")
+    if page_table is not None and (page_table.dim() != 2
+                                   or page_table.shape[0] != bsz):
+        raise ValueError(f"page_table shape {tuple(page_table.shape)} is not "
+                         f"({bsz}, MP)")
     if lengths.shape != (bsz,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != ({bsz},)")
     quant = k_scale is not None
     if quant != (v_scale is not None) or quant != (k.dtype == torch.int8) \
             or k.dtype != v.dtype:
         raise ValueError("int8 caches take k_scale and v_scale; others neither")
-    if quant and (k_scale.shape != (bsz, hkv, s) or v_scale.shape != (bsz, hkv, s)):
-        raise ValueError(f"scales must be ({bsz}, {hkv}, {s})")
+    if quant and (k_scale.shape != (units, hkv, s)
+                  or v_scale.shape != (units, hkv, s)):
+        raise ValueError(f"scales must be ({units}, {hkv}, {s})")
     if not quant and k.dtype != q.dtype:
         raise ValueError(f"cache dtype {k.dtype} != query dtype {q.dtype}")
+
+
+def _check_launch(name, q, v, tensors, int32s, k_scale, v_scale):
+    """What the kernel takes beyond the contract: contiguous CUDA tensors on
+    one device, f32 or bf16 queries, int32 lengths and table, f32 scales,
+    G <= 16, Dv <= 128."""
+    device = q.device
+    for t in tensors:
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"{name} takes CUDA tensors on one device, got "
+                             f"{t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
+    for what, t in int32s:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{what} must be int32")
+    if k_scale is not None and (k_scale.dtype != torch.float32
+                                or v_scale.dtype != torch.float32):
+        raise ValueError("k_scale and v_scale must be float32")
+    g, dv = q.shape[2], v.shape[2]
+    if g > 16 or dv > 128:
+        raise ValueError(f"{name} takes up to 16 query heads per KV head and "
+                         f"value heads up to 128 wide, got {g}, {dv}")
+
+
+def _raise_on(err, what):
+    if err != 0:
+        lib = _library()
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.decode_attention_error_string(err).decode()} "
+                           f"({err})")
+
+
+def _scale(q, softmax_scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if softmax_scale is None else softmax_scale
 
 
 def decode_attention_cuda(q, k, v, lengths, *, k_scale=None, v_scale=None,
                           softmax_scale: Optional[float] = None,
                           logit_softcap: Optional[float] = None):
-    """Single-token attention over the cache as one launch of the kernel.
+    """Single-token attention over the dense cache as one launch of the
+    kernel.
 
     Takes contiguous CUDA tensors on one device: q f32 or bf16, the cache in
     q's dtype or int8 with f32 scales, lengths int32. Launches on the
     current stream and does not synchronise. Raises on anything else and
     if the launch is refused."""
     _check(q, k, v, lengths, k_scale, v_scale)
-    tensors = [q, k, v, lengths] + ([k_scale, v_scale] if k_scale is not None
-                                    else [])
-    device = q.device
-    for t in tensors:
-        if t.device != device or device.type != "cuda":
-            raise ValueError("decode_attention_cuda takes CUDA tensors on one "
-                             f"device, got {t.device} and {device}")
-        if not t.is_contiguous():
-            raise ValueError("decode_attention_cuda takes contiguous tensors")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decode_attention_cuda takes f32 or bf16 queries, "
-                         f"got {q.dtype}")
-    if lengths.dtype != torch.int32:
-        raise ValueError("lengths must be int32")
-    if k_scale is not None and (k_scale.dtype != torch.float32
-                                or v_scale.dtype != torch.float32):
-        raise ValueError("k_scale and v_scale must be float32")
+    scales = [k_scale, v_scale] if k_scale is not None else []
+    _check_launch("decode_attention_cuda", q, v, [q, k, v, lengths] + scales,
+                  [("lengths", lengths)], k_scale, v_scale)
     bsz, hkv, g, d = q.shape
     dv, s = v.shape[2], k.shape[3]
-    if g > 16 or dv > 128:
-        raise ValueError("decode_attention_cuda takes up to 16 query heads per "
-                         f"KV head and value heads up to 128 wide, got {g}, {dv}")
-    if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(d)
-    out = torch.empty(bsz, hkv, g, dv, dtype=q.dtype, device=device)
-    lib = _library()
-    err = lib.decode_attention_launch(
+    out = torch.empty(bsz, hkv, g, dv, dtype=q.dtype, device=q.device)
+    err = _library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
-        out.data_ptr(), bsz, hkv, g, d, dv, s, float(softmax_scale),
+        out.data_ptr(), bsz, hkv, g, d, dv, s, float(_scale(q, softmax_scale)),
         float(logit_softcap or 0.0), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k.dtype], torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("decode_attention launch failed: "
-                           f"{lib.decode_attention_error_string(err).decode()} "
-                           f"({err})")
+        _DTYPE_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "decode_attention")
     decode_attention_cuda.launches += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+
+
+def decode_attention_paged_cuda(q, k_pool, v_pool, page_table, lengths, *,
+                                k_scale=None, v_scale=None,
+                                softmax_scale: Optional[float] = None,
+                                logit_softcap: Optional[float] = None,
+                                pipelined=False):
+    """Single-token attention over the page pool through ``page_table``, as
+    one launch of the kernel.
+
+    Takes contiguous CUDA tensors on one device: q f32 or bf16, the pools in
+    q's dtype or int8 with f32 scales, table and lengths int32. A live table
+    entry must name a page of the pool; dead ones are never read. Launches
+    on the current stream and does not synchronise. Raises on anything else
+    and if the launch is refused. ``pipelined`` is ignored (module
+    docstring)."""
+    del pipelined
+    _check(q, k_pool, v_pool, lengths, k_scale, v_scale, page_table)
+    scales = [k_scale, v_scale] if k_scale is not None else []
+    _check_launch("decode_attention_paged_cuda", q, v_pool,
+                  [q, k_pool, v_pool, page_table, lengths] + scales,
+                  [("lengths", lengths), ("page_table", page_table)],
+                  k_scale, v_scale)
+    bsz, hkv, g, d = q.shape
+    dv, pg = v_pool.shape[2], k_pool.shape[3]
+    out = torch.empty(bsz, hkv, g, dv, dtype=q.dtype, device=q.device)
+    err = _library().decode_attention_paged_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        out.data_ptr(), bsz, hkv, g, d, dv, pg, page_table.shape[1],
+        float(_scale(q, softmax_scale)), float(logit_softcap or 0.0),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "decode_attention_paged")
+    decode_attention_paged_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_cuda.launches = 0
+
+
+def gather_pages(pool, page_table):
+    """Each row's view of a page pool through its table, slot axis minor:
+    (NP, Hkv, X, pg) -> (B, Hkv, X, MP·pg), or scales (NP, Hkv, pg) ->
+    (B, Hkv, MP·pg). Every table entry must name a page of the pool."""
+    bsz, mp = page_table.shape
+    g = pool[page_table.long()]  # (B, MP, Hkv, [X,] pg)
+    if pool.dim() == 3:
+        return g.permute(0, 2, 1, 3).reshape(bsz, pool.shape[1], -1)
+    return g.permute(0, 2, 3, 1, 4).reshape(bsz, pool.shape[1], pool.shape[2], -1)
+
+
+def _fold_torch(q, k, v, live, k_scale, v_scale, softmax_scale, logit_softcap):
+    """The plain read of K/V (B, Hkv, D, S) at the slots where ``live``
+    (B, S) holds: the softmax over all S at once instead of tile by tile.
+    What a dead slot holds (K, V or scales, even NaN) never reaches the
+    result."""
+    s = torch.einsum("bhgd,bhds->bhgs", q.float(), k.to(q.dtype).float())
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    s = s * softmax_scale
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    live4 = live[:, None, None, :]
+    s = torch.where(live4, s, _MASKED)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * torch.where(live[:, None, :], v_scale, 0.0)[:, :, None, :]
+    p = p.to(q.dtype).float()
+    vf = torch.where(live4, v.to(q.dtype).float(), 0.0)
+    o = torch.einsum("bhgs,bhds->bhgd", p, vf) / l
+    o = torch.where(live.any(dim=-1)[:, None, None, None], o, 0.0)
+    return o.to(q.dtype)
 
 
 def decode_attention_torch(q, k, v, lengths, *, k_scale=None, v_scale=None,
@@ -139,36 +255,63 @@ def decode_attention_torch(q, k, v, lengths, *, k_scale=None, v_scale=None,
     the same scores, masks and roundings, the softmax taken over all S slots
     at once instead of tile by tile."""
     _check(q, k, v, lengths, k_scale, v_scale)
-    if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhgd,bhds->bhgs", q.float(), k.to(q.dtype).float())
-    if k_scale is not None:
-        s = s * k_scale[:, :, None, :]
-    s = s * softmax_scale
-    if logit_softcap is not None:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
     slot = torch.arange(k.shape[3], device=q.device)
     live = slot[None, :] < lengths.to(q.device)[:, None].long()
-    s = torch.where(live[:, None, None, :], s, _MASKED)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if v_scale is not None:
-        p = p * v_scale[:, :, None, :]
-    p = p.to(q.dtype).float()
-    o = torch.einsum("bhgs,bhds->bhgd", p, v.to(q.dtype).float()) / l
-    o = torch.where(live.any(dim=-1)[:, None, None, None], o, 0.0)
-    return o.to(q.dtype)
+    return _fold_torch(q, k, v, live, k_scale, v_scale,
+                       _scale(q, softmax_scale), logit_softcap)
+
+
+def decode_attention_paged_torch(q, k_pool, v_pool, page_table, lengths, *,
+                                 k_scale=None, v_scale=None,
+                                 softmax_scale: Optional[float] = None,
+                                 logit_softcap: Optional[float] = None,
+                                 pipelined=False):
+    """The plain version of :func:`decode_attention_paged_cuda`, on any
+    device: the dense plain read over each row's gathered (Hkv, D, MP·pg)
+    view, in which dead table entries are replaced by page 0 before the
+    gather and dead slots are masked."""
+    del pipelined
+    _check(q, k_pool, v_pool, lengths, k_scale, v_scale, page_table)
+    mp, pg = page_table.shape[1], k_pool.shape[3]
+    device = q.device
+    lengths = lengths.to(device).long().clamp(max=mp * pg)
+    live_pages = (torch.arange(mp, device=device)[None, :]
+                  < (lengths[:, None] + pg - 1) // pg)
+    table = torch.where(live_pages, page_table.to(device).long(), 0)
+    live = torch.arange(mp * pg, device=device)[None, :] < lengths[:, None]
+    k_scale, v_scale = (None if s is None else gather_pages(s, table)
+                        for s in (k_scale, v_scale))
+    return _fold_torch(q, gather_pages(k_pool, table),
+                       gather_pages(v_pool, table), live, k_scale, v_scale,
+                       _scale(q, softmax_scale), logit_softcap)
+
+
+def _by_device(cuda_fn, torch_fn, q, *args, **kw):
+    if q.device.type == "cuda":
+        return cuda_fn(q, *args, **kw)
+    if q.device.type == "cpu":
+        return torch_fn(q, *args, **kw)
+    raise ValueError(f"no decode attention for device {q.device}")
 
 
 def decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None,
                      softmax_scale: Optional[float] = None,
                      logit_softcap: Optional[float] = None):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    kw = dict(k_scale=k_scale, v_scale=v_scale, softmax_scale=softmax_scale,
-              logit_softcap=logit_softcap)
-    if q.device.type == "cuda":
-        return decode_attention_cuda(q, k, v, lengths, **kw)
-    if q.device.type == "cpu":
-        return decode_attention_torch(q, k, v, lengths, **kw)
-    raise ValueError(f"no decode attention for device {q.device}")
+    """The dense kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    return _by_device(decode_attention_cuda, decode_attention_torch, q, k, v,
+                      lengths, k_scale=k_scale, v_scale=v_scale,
+                      softmax_scale=softmax_scale, logit_softcap=logit_softcap)
+
+
+def decode_attention_paged(q, k_pool, v_pool, page_table, lengths, *,
+                           k_scale=None, v_scale=None,
+                           softmax_scale: Optional[float] = None,
+                           logit_softcap: Optional[float] = None,
+                           pipelined=False):
+    """The paged kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    return _by_device(decode_attention_paged_cuda, decode_attention_paged_torch,
+                      q, k_pool, v_pool, page_table, lengths, k_scale=k_scale,
+                      v_scale=v_scale, softmax_scale=softmax_scale,
+                      logit_softcap=logit_softcap, pipelined=pipelined)

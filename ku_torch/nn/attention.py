@@ -6,38 +6,67 @@ no biases, applied as ``x @ W``), so ``load_state_dict`` takes
 :func:`ku_torch.utility.state_dict_from_tree` of ``ku``'s params as it is.
 
 Decode (``decode=True``) follows ``ku``'s cache protocol with an explicit
-cache: a dict keyed like ``ku``'s ``cache`` collection,
-``{scope}/cached_key`` (B, Hkv, D/H, max_decode_len) and
-``{scope}/cached_value`` (slot axis minor, the K/V dtype) and
-``{scope}/cache_index`` (B,) int32, created on first use. The forward
-updates the dict and its tensors IN PLACE (the K/V write at each row's
-index) and returns ``(y, cache)``. L > 1 is a prefill, ragged with
-``prompt_lengths``; L = 1 is one token per row.
+cache: a dict keyed like ``ku``'s ``cache`` collection, created on first use
+(each missing entry on its own), every tensor with the slot axis minor:
 
-The two kernels on this path are chosen by the tensor's device, never by
-size: ``use_flash`` routes prefill and the non-decode scaled path through
+- dense: ``{scope}/cached_key`` (B, Hkv, D/H, max_decode_len) and
+  ``{scope}/cached_value``;
+- paged (``kv_page_size=pg``): a pool ``{scope}/pages_k`` (NP, Hkv, D/H, pg)
+  and ``{scope}/pages_v`` shared by all rows, and ``{scope}/page_table``
+  (B, MP) int32 naming the pool page of each of a row's MP =
+  ceil(max_decode_len/pg) logical pages. NP is ``kv_num_pages``, or B·MP,
+  and the default table is the identity ``min(b·MP + j, NP-1)`` (it aliases
+  pages, with a warning, when NP < B·MP: a scheduler such as
+  :class:`ku_torch.nn.ContinuousBatcher` then writes the table);
+- int8 (``kv_cache_dtype='int8'``): the K/V entries hold int8, quantised
+  per (token, head) symmetrically, beside f32 ``{scope}/key_scale`` /
+  ``value_scale`` (B, Hkv, max_decode_len), or ``key_scale_pages`` /
+  ``value_scale_pages`` (NP, Hkv, pg) for a pool. Attention sees the
+  dequantised values cast to the K/V dtype, except the per-token reads,
+  which fold the scales into scores and probabilities as ``ku`` does;
+- ``{scope}/cache_index`` (B,) int32.
+
+The forward writes this chunk's K/V into the dict's tensors IN PLACE, at
+each row's index, and returns ``(y, cache)`` with ``cache_index`` advanced.
+L > 1 is a prefill, ragged with ``prompt_lengths``; L = 1 is one token per
+row. A paged write lands only in the pages that the row's own table names
+for its positions: so a caller that shares one pool between several cache
+dicts (the batcher's sub-batch admissions) changes no page that the rows it
+passes do not own. A position past a dense cache's end is clamped to its
+last slot, one past a table's end (MP·pg) is dropped, as ``ku`` documents
+it (``ku``'s per-token write for pools above 8 MB instead lands such a
+position in pool page 0).
+
+The three kernels on this path are chosen by the tensor's device, never by
+size: ``use_flash`` routes prefill (over the gathered, dequantised view for
+a pool or an int8 cache) and the non-decode scaled path through
 :func:`ku_torch.kernels.flash_attention.flash_attention`, and the per-token
 read goes through :func:`ku_torch.kernels.decode_attention.decode_attention`
-unless ``flash_decode=False`` asks for the plain masked read. On a CUDA
-tensor each launches its kernel (or raises); on a CPU tensor each takes its
-plain version.
+or, for a pool, ``decode_attention_paged`` (int8 caches with their scales)
+unless ``flash_decode=False`` asks for the plain reads: ``ku``'s masked
+read, or for a pool its page scan. On a CUDA tensor each launches its
+kernel (or raises); on a CPU tensor each takes its plain version.
 
 Not ported yet, and raising ``NotImplementedError`` with the slice that
-brings them: the paged cache (``kv_page_size``), the ring cache
-(``window`` with ``decode=True``), the int8 KV cache (``kv_cache_dtype``),
+brings them: the ring cache (``window`` with ``decode=True``),
 ``quant_weights``, ``block_mask``, and gradients through ``use_flash``.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Union
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ku_torch.kernels.decode_attention import decode_attention
+from ku_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_paged,
+    gather_pages,
+)
 from ku_torch.kernels.flash_attention import flash_attention
 
 SIMILARITY_TYPE_DIFF_ABS = "diff_abs"
@@ -118,14 +147,6 @@ class MultiHeadAttention(nn.Module):
                  d_input: Optional[int] = None, device="cuda", dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if kv_page_size is not None or kv_num_pages is not None:
-            raise _not_ported("the paged KV cache (kv_page_size)", "paged-cache")
-        if kv_cache_dtype is not None:
-            if kv_cache_dtype != "int8":
-                raise ValueError("kv_cache_dtype must be None or 'int8', got "
-                                 f"{kv_cache_dtype!r}")
-            raise _not_ported("the int8 KV cache (kv_cache_dtype='int8')",
-                              "int8-cache")
         if quant_weights:
             raise _not_ported("quant_weights", "weight-quantization")
         self.num_head = num_head
@@ -139,6 +160,9 @@ class MultiHeadAttention(nn.Module):
         self.num_kv_head = num_kv_head
         self.max_decode_len = max_decode_len
         self.global_prefix = global_prefix
+        self.kv_cache_dtype = kv_cache_dtype
+        self.kv_page_size = kv_page_size
+        self.kv_num_pages = kv_num_pages
         self.logit_softcap = logit_softcap
         self.rope = rope
         self.rope_base = rope_base
@@ -188,6 +212,21 @@ class MultiHeadAttention(nn.Module):
                               "ring-cache")
         if decode and self.max_decode_len is None:
             raise ValueError("decode=True requires max_decode_len")
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError("kv_cache_dtype must be None or 'int8', got "
+                             f"{self.kv_cache_dtype!r}")
+        if self.kv_page_size is not None:
+            if self.kv_page_size < 1:
+                raise ValueError("kv_page_size must be >= 1")
+            if self.kv_num_pages is not None and self.kv_num_pages < 1:
+                raise ValueError("kv_num_pages must be >= 1")
+            if self.window is not None:
+                raise ValueError("paged caches do not compose with ring caches "
+                                 "(window) — pick one layout")
+            if self.max_decode_len is None:
+                raise ValueError("kv_page_size requires max_decode_len")
+        elif self.kv_num_pages is not None:
+            raise ValueError("kv_num_pages requires kv_page_size")
         scaled = (self.similarity_type == SIMILARITY_TYPE_SCALED
                   and not self.use_mask)
         if decode and not scaled:
@@ -306,21 +345,55 @@ class MultiHeadAttention(nn.Module):
         return torch.einsum("bhqk,bhkd->bhqd", probs, v_h)
 
     def _decode(self, q_h, k_h, v_h, d_k, prompt_lengths, cache, scope):
-        """Dense-cache decode: write this chunk's K/V at each row's index,
-        then attend the cache. Returns the heads (B, H, L, Dv/H)."""
+        """Cache decode: write this chunk's K/V at each row's index (the
+        dense cache, or the pool through the row's table), then attend the
+        cache. Returns the heads (B, H, L, Dv/H)."""
         bsz, h, L, d_k_h = q_h.shape
         hkv, d_v_h = k_h.shape[1], v_h.shape[-1]
-        mx = self.max_decode_len
-        device = q_h.device
-        names = [scoped(scope, n) for n in ("cached_key", "cached_value",
-                                            "cache_index")]
-        if names[0] not in cache:
-            cache[names[0]] = torch.zeros(bsz, hkv, d_k_h, mx, dtype=k_h.dtype,
-                                          device=device)
-            cache[names[1]] = torch.zeros(bsz, hkv, d_v_h, mx, dtype=v_h.dtype,
-                                          device=device)
-            cache[names[2]] = torch.zeros(bsz, dtype=torch.int32, device=device)
-        ck, cv, idx = (cache[n] for n in names)
+        device, kv_dt = q_h.device, k_h.dtype
+        paged, quant = self.kv_page_size is not None, self.kv_cache_dtype is not None
+        if paged:
+            pg = self.kv_page_size
+            mp = -(-self.max_decode_len // pg)
+            n_pages = self.kv_num_pages if self.kv_num_pages is not None else bsz * mp
+            mx = mp * pg
+        else:
+            mx = self.max_decode_len
+
+        def entry(name, make):
+            key = scoped(scope, name)
+            if key not in cache:
+                cache[key] = make()
+            return cache[key]
+
+        def zeros(*shape, dtype=torch.int8 if quant else kv_dt):
+            return lambda: torch.zeros(shape, dtype=dtype, device=device)
+
+        table = None
+        if paged:
+            if n_pages < bsz * mp and scoped(scope, "page_table") not in cache:
+                warnings.warn(
+                    f"paged cache: kv_num_pages={n_pages} < B*pages-per-seq="
+                    f"{bsz * mp}, so the default identity page_table ALIASES "
+                    "pool pages (clamped) — wrong attention unless a scheduler "
+                    "(e.g. ku_torch.nn.ContinuousBatcher) overwrites the table "
+                    "values before real use", stacklevel=4)
+            ck = entry("pages_k", zeros(n_pages, hkv, d_k_h, pg))
+            cv = entry("pages_v", zeros(n_pages, hkv, d_v_h, pg))
+            table = entry("page_table", lambda: torch.minimum(
+                torch.arange(bsz, device=device)[:, None] * mp
+                + torch.arange(mp, device=device)[None], torch.tensor(
+                    n_pages - 1, device=device)).to(torch.int32))
+        else:
+            ck = entry("cached_key", zeros(bsz, hkv, d_k_h, mx))
+            cv = entry("cached_value", zeros(bsz, hkv, d_v_h, mx))
+        idx = entry("cache_index", zeros(bsz, dtype=torch.int32))
+        ksc = vsc = None
+        if quant:
+            shape = (n_pages, hkv, pg) if paged else (bsz, hkv, mx)
+            suffix = "_pages" if paged else ""
+            ksc = entry("key_scale" + suffix, zeros(*shape, dtype=torch.float32))
+            vsc = entry("value_scale" + suffix, zeros(*shape, dtype=torch.float32))
         if prompt_lengths is not None:
             if L == 1:
                 raise ValueError("prompt_lengths requires a chunk of width > 1 "
@@ -332,42 +405,133 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError(f"prompt_lengths must have shape ({bsz},), "
                                  f"got {tuple(prompt_lengths.shape)}")
         steps = torch.arange(L, device=device)
+        posn = idx[:, None] + steps[None]  # (B, L) global positions
         if self.rope:
-            # Global positions, before caching: cached keys never need
-            # rotating again.
-            gpos = idx[:, None] + steps[None]
-            q_h = apply_rope(q_h, gpos, self.rope_base)
-            k_h = apply_rope(k_h, gpos, self.rope_base)
-        # Per-row write at idx, start clamped so the chunk fits (as ku's
-        # dynamic_update_slice); the cache is slot-minor, the chunk
-        # arrives (B, Hkv, L, D).
-        start = idx.clamp(0, mx - L).long()
-        rows = torch.arange(bsz, device=device)[:, None]
-        slots = start[:, None] + steps[None]
-        ck[rows, :, :, slots] = k_h.permute(0, 2, 1, 3)
-        cv[rows, :, :, slots] = v_h.permute(0, 2, 1, 3)
-        cache[names[2]] = idx + (prompt_lengths if prompt_lengths is not None
-                                 else L)
+            # Global positions, before quantising and caching: cached keys
+            # never need rotating again.
+            q_h = apply_rope(q_h, posn, self.rope_base)
+            k_h = apply_rope(k_h, posn, self.rope_base)
+        k_st, v_st = k_h, v_h
+        if quant:
+            (k_st, k_s), (v_st, v_s) = _quantize(k_h), _quantize(v_h)
+
+        # The chunk arrives (B, Hkv, L, D); the cache is slot-minor.
+        writes = [(ck, k_st.permute(0, 2, 1, 3)), (cv, v_st.permute(0, 2, 1, 3))]
+        if quant:
+            writes += [(ksc, k_s.permute(0, 2, 1)), (vsc, v_s.permute(0, 2, 1))]
+        if paged:
+            _write_pages(writes, table, posn, pg)
+        else:
+            # Per-row write at idx, start clamped so the chunk fits (as ku's
+            # dynamic_update_slice).
+            slots = idx.clamp(0, mx - L).long()[:, None] + steps[None]
+            rows = torch.arange(bsz, device=device)[:, None]
+            for dest, value in writes:
+                dest[rows, ..., slots] = value
+        cache[scoped(scope, "cache_index")] = idx + (
+            prompt_lengths if prompt_lengths is not None else L)
         scale = 1.0 / math.sqrt(d_k)
         group = h // hkv
         qg = q_h.reshape(bsz, hkv, group, L, d_k_h)
 
-        # Attend the whole cache page under a causal mask at q_offset = idx:
-        # it admits earlier chunks' keys and hides the unwritten tail.
-        # Padding past a row's prompt length is written but stays invisible
-        # below cache_index, and its outputs are ignored.
+        if L == 1 and self.flash_decode is not False:
+            kw = dict(k_scale=ksc, v_scale=vsc, softmax_scale=scale,
+                      logit_softcap=self.logit_softcap)
+            q1 = qg[:, :, :, 0].contiguous()
+            res = (decode_attention_paged(q1, ck, cv, table, idx + 1,
+                                          pipelined="v4", **kw) if paged
+                   else decode_attention(q1, ck, cv, idx + 1, **kw))
+            return res.reshape(bsz, h, 1, d_v_h)
+        if L == 1 and paged:
+            return self._page_scan(qg, ck, cv, ksc, vsc, table, idx, scale,
+                                   kv_dt).reshape(bsz, h, 1, d_v_h)
+
+        pos = torch.arange(mx, device=device)[None, None, :]
+        keep = pos <= posn[:, :, None]  # (B, L, mx)
+        if L == 1 and quant:
+            # ku's scale-folded int8 read: int8 cast to the K/V dtype in the
+            # products, scales on the score and probability slabs.
+            s = torch.einsum("bhgqd,bhdk->bhgqk", qg, ck.to(kv_dt)).float()
+            s = self._cap(s * (ksc * scale)[:, :, None, None, :])
+            s = torch.where(keep[:, None, None], s, _MASKED)
+            p = torch.softmax(s, dim=-1)
+            pv = (p * vsc[:, :, None, None, :]).to(kv_dt)
+            return torch.einsum("bhgqk,bhdk->bhgqd", pv, cv.to(kv_dt)
+                                ).reshape(bsz, h, 1, d_v_h)
+
+        def full(pool, scales):
+            """The whole (B, Hkv, D, mx) cache in the K/V dtype."""
+            x = gather_pages(pool, table) if paged else pool
+            if quant:
+                sx = gather_pages(scales, table) if paged else scales
+                x = (x.float() * sx[:, :, None, :]).to(kv_dt)
+            return x
+
+        kf, vf = full(ck, ksc), full(cv, vsc)
+        # Attend the whole cache under a causal mask at q_offset = idx: it
+        # admits earlier chunks' keys and hides the unwritten tail. Padding
+        # past a row's prompt length is written but stays invisible below
+        # cache_index, and its outputs are ignored.
         if L > 1 and self.use_flash:
-            return flash_attention(q_h, ck.transpose(2, 3), cv.transpose(2, 3),
+            return flash_attention(q_h, kf.transpose(2, 3), vf.transpose(2, 3),
                                    softmax_scale=scale, causal=True,
                                    q_offset=idx, logit_softcap=self.logit_softcap)
-        if L == 1 and self.flash_decode is not False:
-            res = decode_attention(qg[:, :, :, 0].contiguous(), ck, cv,
-                                   idx + 1, softmax_scale=scale,
-                                   logit_softcap=self.logit_softcap)
-            return res.reshape(bsz, h, 1, d_v_h)
-        pos = torch.arange(mx, device=device)[None, None, :]
-        keep = pos <= idx[:, None, None] + steps[None, :, None]  # (B, L, mx)
-        s = torch.einsum("bhgqd,bhdk->bhgqk", qg, ck) / math.sqrt(d_k)
+        s = torch.einsum("bhgqd,bhdk->bhgqk", qg, kf) / math.sqrt(d_k)
         s = torch.where(keep[:, None, None], self._cap(s), _MASKED)
         p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhgqk,bhdk->bhgqd", p, cv).reshape(bsz, h, L, d_v_h)
+        return torch.einsum("bhgqk,bhdk->bhgqd", p, vf).reshape(bsz, h, L, d_v_h)
+
+    def _page_scan(self, qg, ck, cv, ksc, vsc, table, idx, scale, kv_dt):
+        """ku's plain per-token read of a pool (its blocked page scan): f32
+        scores and accumulators, int8 scales folded into the score and
+        probability slabs, the probabilities not rounded; here over the
+        gathered view at once instead of 8 pages a step."""
+        if ksc is not None:
+            s = torch.einsum("bhgqd,bhdk->bhgqk", qg,
+                             gather_pages(ck, table).to(kv_dt)).float()
+            s = s * gather_pages(ksc, table)[:, :, None, None, :] * scale
+        else:
+            s = torch.einsum("bhgqd,bhdk->bhgqk", qg.float(),
+                             gather_pages(ck, table).float()) * scale
+        s = self._cap(s)
+        live = torch.arange(s.shape[-1], device=s.device)[None] <= idx[:, None]
+        s = torch.where(live[:, None, None, None], s, _MASKED)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        if vsc is not None:
+            p = p * gather_pages(vsc, table)[:, :, None, None, :]
+        vf = torch.where(live[:, None, None], gather_pages(cv, table).float(), 0.0)
+        acc = torch.einsum("bhgqk,bhdk->bhgqd", p, vf)
+        return (acc / l).to(qg.dtype)
+
+
+def _quantize(x):
+    """Symmetric per-(token, head) int8: the largest |element| of each
+    vector maps to 127. Returns (int8 values, f32 scales), as ku's
+    ``_quant``, the scale computed in x's dtype."""
+    s = (x.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    q = torch.round(x / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s.float()
+
+
+def _write_pages(writes, table, posn, pg):
+    """``dest[table[b, pos // pg], ..., pos % pg] = value[b, l]`` for every
+    (dest pool, value (B, L, ...)) pair, row b and global position pos =
+    posn[b, l]. A position past the table's end is dropped, as ku's table
+    scatter drops it. A per-token step drops it without a host sync by
+    writing back what was there; a prefill selects the kept positions."""
+    mp = table.shape[1]
+    page = posn // pg
+    keep = page < mp
+    pid = table.gather(1, page.clamp(0, mp - 1)).long()
+    off = posn % pg
+    if posn.shape[1] == 1:
+        for dest, value in writes:
+            old = dest[pid, ..., off]
+            dest[pid, ..., off] = torch.where(
+                keep.view(keep.shape + (1,) * (value.dim() - 2)), value, old)
+        return
+    sel = keep.nonzero(as_tuple=True)
+    for dest, value in writes:
+        dest[pid[sel], ..., off[sel]] = value[sel]

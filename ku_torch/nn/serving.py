@@ -1,31 +1,52 @@
 """Continuous batching: iteration-level scheduling over the KV-cache
-protocol, dense caches.
+protocol, dense or paged caches.
 
-Port of ``ku/nn/serving.py``'s ``ContinuousBatcher`` in dense mode. A fixed
-pool of batch SLOTS decodes in chunks of single-token steps, each slot at
-its own position (per-row ``cache_index``); between chunks the host
-collects finished sequences, frees their slots and admits queued requests
-into them, without touching the other rows.
+Port of ``ku/nn/serving.py``'s ``ContinuousBatcher``. A fixed pool of batch
+SLOTS decodes in chunks of single-token steps, each slot at its own
+position (per-row ``cache_index``); between chunks the host collects
+finished sequences, frees their slots and admits queued requests into
+them, without touching the other rows.
 
-- **Admission** prefills only the admitted rows: their cache rows are taken
-  out (round 0 starts them from an empty cache), prefilled as a sub-batch
-  of right-padded prompts with ``prompt_lengths``, and written back by row
-  index. ``ku`` instead prefills every slot with dummy rows and merges; both
-  leave a continuing row's cache bit for bit as it was, and here no other
-  row is even read. Prompts longer than ``prompt_len`` take several rounds
-  (chunked prefill); a round continues from the rows' live cache.
+- **Admission** prefills only the admitted rows, as a sub-batch of
+  right-padded prompts with ``prompt_lengths``. ``ku`` instead prefills
+  every slot with dummy rows and merges; both leave a continuing row's
+  cache as it was, and here no other row is even read. Prompts longer than
+  ``prompt_len`` take several rounds (chunked prefill); a round continues
+  from the rows' live cache. Dense caches: the rows are taken out (round 0
+  starts them from an empty cache) and written back by row index.
+- **Paged mode** (a model built with ``kv_page_size``, detected from its
+  cache): the KV memory is a pool of NP pages, smaller than B × pages per
+  sequence, and each request gets only the pages it needs
+  (:meth:`ContinuousBatcher._pages_needed`) from a host free list. Page 0
+  is scratch: every table entry of a row that is not live, and every entry
+  past a row's allocation, points at it. Admission defers in FIFO order
+  when the pool is short (and raises when nothing is active and the head of
+  the queue can never fit); pages recycle on completion. One (B, MP) table
+  tensor is shared by every layer's ``page_table`` entry and kept equal to
+  the host's tables: it is rewritten at each admission and as soon as a
+  row finishes, so a finished row points at scratch before the next decode
+  chunk, and a page handed to a new request is never written by its former
+  row. A sub-batch admission passes the pool tensors themselves with the
+  admitted rows' table rows: a paged write goes only through the table of
+  the row that makes it (:mod:`ku_torch.nn.attention`), and an admitted
+  row's table names the shared prefix's full pages (below every position
+  it writes), its own pages and scratch, so only the admitted rows' pages
+  change. Only ``cache_index`` is copied back.
+- ``shared_prefix`` (paged only, as in ``ku``): the prefix is prefilled
+  once into pages that never free; each request's table starts with its
+  full pages, and its partial tail page is copied into the request's
+  first own page at admission.
 - **Decode** runs ``chunk`` single-token steps over all slots. Finished
-  slots keep decoding garbage until the chunk ends (``wasted_slot_steps``).
-  ``chunk`` may be a sequence of sizes, picked per round by
-  :meth:`ContinuousBatcher._pick_chunk`, as in ``ku``.
+  slots keep decoding garbage until the chunk ends (``wasted_slot_steps``;
+  in paged mode into scratch). ``chunk`` may be a sequence of sizes,
+  picked per round by :meth:`ContinuousBatcher._pick_chunk`, as in ``ku``.
 
-Not ported yet: the paged pool and ``shared_prefix`` (paged-only in ``ku``
-too: it keeps ``ku``'s ``ValueError``), and ``mesh=``, which raises
-``NotImplementedError``.
+Not ported yet: ``mesh=``, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import warnings
 from collections import deque
 from typing import Any, Callable, Optional, Sequence
 
@@ -34,6 +55,12 @@ import torch
 
 from ku_torch.nn.decoding import _mark_seen, chosen_logprob, greedy
 
+_POOL_LEAVES = ("pages_k", "pages_v", "key_scale_pages", "value_scale_pages")
+
+
+def _leaf(key: str) -> str:
+    return key.rsplit("/", 1)[-1]
+
 
 class ContinuousBatcher:
     """A slot-pool serving scheduler over the KV-cache protocol.
@@ -41,8 +68,8 @@ class ContinuousBatcher:
     Args:
       model: follows the cache protocol of :func:`ku_torch.nn.generate`
         (``model([x], decode=True, cache=..., prompt_lengths=...)`` →
-        ``(y, cache)``), dense caches; ``max_decode_len`` must cover
-        prompt + budget + chunk.
+        ``(y, cache)``), dense or paged caches; ``max_decode_len`` must
+        cover prefix + prompt + budget + chunk.
       embed: (ids (B, L), positions) → (B, L, d); positions (B, 1) per row
         in decode, (P,) in prefill.
       readout: (B, 1, d) → (B, 1, V) logits.
@@ -93,7 +120,7 @@ class ContinuousBatcher:
         self._device = next(model.parameters()).device
         self._generator = (generator if generator is not None else
                            torch.Generator(device=self._device).manual_seed(0))
-        self._spec = None  # {cache key: (shape without batch, dtype)}
+        self._spec = None  # {cache key: (shape, dtype)}
 
     # -- device programs ------------------------------------------------
 
@@ -157,43 +184,88 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def _build_spec(self):
-        """One throwaway one-row prefill discovers the cache's entries, the
-        vocabulary width and the cache length."""
-        P, dev = self.prompt_len, self._device
-        x = self._embed(torch.zeros(1, P, dtype=torch.int64, device=dev),
+        """One throwaway prefill of all B slots discovers the cache's entries
+        and shapes, the vocabulary width and the cache geometry (dense
+        length, or pool pages, page size and table width)."""
+        B, P, dev = self.num_slots, self.prompt_len, self._device
+        x = self._embed(torch.zeros(B, P, dtype=torch.int64, device=dev),
                         torch.arange(P, device=dev))
-        y, cache = self._model([x], decode=True, cache={},
-                               prompt_lengths=torch.ones(1, dtype=torch.int32,
-                                                         device=dev),
-                               **self._kw)
+        with warnings.catch_warnings():
+            # The identity table's aliasing warning does not apply: the
+            # scheduler writes every table before real use.
+            warnings.filterwarnings("ignore", message=".*ALIASES.*")
+            y, cache = self._model([x], decode=True, cache={},
+                                   prompt_lengths=torch.ones(B, dtype=torch.int32,
+                                                             device=dev),
+                                   **self._kw)
         self._vocab = self._readout(y[:, :1]).shape[-1]
-        self._spec = {k: (tuple(v.shape[1:]), v.dtype) for k, v in cache.items()}
-        lens = {shape[-1] for k, (shape, _) in self._spec.items()
-                if k.endswith("cached_key")}
-        real = max(lens) if lens else None
+        self._spec = {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
+        pools = {shape[0::3] for k, (shape, _) in self._spec.items()
+                 if _leaf(k) == "pages_k"}  # (NP, Hkv, D, pg): slots minor
+        mps = {shape[1] for k, (shape, _) in self._spec.items()
+               if _leaf(k) == "page_table"}
+        self._paged = bool(pools or mps)
+        if self._paged:
+            if len(pools) != 1 or len(mps) != 1:
+                raise ValueError(f"paged layers disagree on pool geometry: "
+                                 f"pools (pages, page size) {pools}, table "
+                                 f"widths {mps} — the scheduler drives one "
+                                 "shared page assignment")
+            (self._n_pages, self._page), = pools
+            self._mp = mps.pop()
+            real = self._mp * self._page
+        else:
+            lens = {shape[-1] for k, (shape, _) in self._spec.items()
+                    if _leaf(k) == "cached_key"}
+            real = max(lens) if lens else None
+        # A larger declaration would let the overrun guard pass requests
+        # whose writes clamp (dense) or drop (paged) past the real cache.
         if real is not None and self.max_decode_len > real:
             raise ValueError(
                 f"max_decode_len={self.max_decode_len} exceeds the model's "
                 f"actual cache length {real} — size the model's "
                 "max_decode_len to cover prompt+budget+chunk")
 
+    def _new_cache(self):
+        """A zero cache for all slots; every layer's page table is the one
+        shared table tensor."""
+        dev = self._device
+        return {k: (self._table if _leaf(k) == "page_table"
+                    else torch.zeros(shape, dtype=dt, device=dev))
+                for k, (shape, dt) in self._spec.items()}
+
+    def _push_tables(self):
+        """The host's tables onto the device table (read by every layer)."""
+        self._table.copy_(torch.from_numpy(self._tables))
+
+    def _sub_cache(self, rows, pos0, first_round):
+        """The cache a sub-batch prefill of slots ``rows`` runs on. Dense: the
+        rows' own entries (nothing in round 0). Paged: the pool tensors
+        themselves, the rows' table rows, and cache indices at ``pos0``."""
+        if not self._paged:
+            return {} if first_round else {k: v[rows] for k, v in self._cache.items()}
+        sub_table = self._table[rows]
+        index = torch.full((len(rows),), pos0, dtype=torch.int32,
+                           device=self._device)
+        return {k: (v if _leaf(k) in _POOL_LEAVES else
+                    sub_table if _leaf(k) == "page_table" else index)
+                for k, v in self._cache.items()}
+
     # -- online scheduler (submit / step) --------------------------------
 
     def reset(self, shared_prefix=None, force: bool = False) -> None:
-        """(Re)initialise: empty queue and slots, fresh stats. Refuses to
-        discard queued or in-flight requests unless ``force=True``.
-        ``shared_prefix`` needs a paged cache, as in ``ku``."""
+        """(Re)initialise: empty queue and slots, fresh stats, and, with
+        ``shared_prefix`` (paged mode only, length >= 2), one prefill of the
+        prefix into shared pages that every later request's table names.
+        Refuses to discard queued or in-flight requests unless
+        ``force=True``."""
         if self._spec is not None and not self.idle and not force:
             raise RuntimeError("reset() would discard queued/in-flight "
                                "requests — drain with step() first or pass "
                                "force=True")
-        if shared_prefix is not None:
-            raise ValueError("shared_prefix needs a paged cache (kv_page_size) "
-                             "— dense callers can prepend the prefix to each "
-                             "prompt or use fork_cache")
         if self._spec is None:
             self._build_spec()
-        B = self.num_slots
+        B, dev = self.num_slots, self._device
         self._queue: deque = deque()
         self._next_id = 0
         self._budgets: dict = {}
@@ -203,13 +275,66 @@ class ContinuousBatcher:
         self._slot_lps: list = [[] for _ in range(B)]
         self._lengths = np.zeros(B, np.int64)  # pending token position
         self._cache = self._pending = self._pending_lp = None
-        self._seen = (torch.zeros(B, self._vocab, dtype=torch.bool,
-                                  device=self._device)
+        self._seen = (torch.zeros(B, self._vocab, dtype=torch.bool, device=dev)
                       if self._needs_seen else None)
+        # The seen row every admitted slot restarts from (the prefix's tokens).
+        self._base_seen = (torch.zeros(self._vocab, dtype=torch.bool, device=dev)
+                           if self._needs_seen else None)
         self._stats = {"admission_events": 0, "chunks": 0,
                        "wasted_slot_steps": 0, "decoded_tokens": 0,
                        "prefill_rounds": 0}
         self.last_stats = self._stats
+        self._plen_pre, self._n_shared_full = 0, 0
+        self._shared_ids, self._prefix_tail_page = [], None
+        if self._paged:
+            # Page 0 is the scratch target; 1..NP-1 are allocatable.
+            self._free_pages = deque(range(1, self._n_pages))
+            self._slot_pages: list = [[] for _ in range(B)]
+            self._tables = np.zeros((B, self._mp), np.int32)
+            self._table = torch.zeros((B, self._mp), dtype=torch.int32, device=dev)
+            self._stats["peak_pages_in_use"] = 0
+        if shared_prefix is not None:
+            self._install_prefix(np.asarray(shared_prefix, np.int64))
+
+    @torch.no_grad()
+    def _install_prefix(self, prefix):
+        if not self._paged:
+            raise ValueError("shared_prefix needs a paged cache (kv_page_size) "
+                             "— dense callers can prepend the prefix to each "
+                             "prompt or use fork_cache")
+        n = len(prefix)
+        if n < 2:
+            raise ValueError("shared_prefix must have length >= 2")
+        n_pre = -(-n // self._page)
+        # The prefix pages never free: at least one must remain for requests.
+        if n_pre + 1 > self._n_pages - 1:
+            raise ValueError(f"shared prefix needs {n_pre} pages and at least "
+                             "one request page, but the pool has "
+                             f"{self._n_pages - 1} allocatable")
+        self._plen_pre = n
+        self._n_shared_full = n // self._page
+        self._shared_ids = [self._free_pages.popleft() for _ in range(n_pre)]
+        if n % self._page:
+            self._prefix_tail_page = self._shared_ids[self._n_shared_full]
+        self._start_cache()
+        # Prefill the prefix once, through a one-row table of its pages.
+        self._tables[0, :n_pre] = self._shared_ids
+        self._push_tables()
+        dev = self._device
+        self._prefill(self._sub_cache(torch.tensor([0], device=dev), 0, True),
+                      torch.from_numpy(prefix)[None].to(dev),
+                      torch.tensor([n], dtype=torch.int32, device=dev), 0, None)
+        self._tables[0] = 0  # row 0 is not a request
+        self._push_tables()
+        if self._needs_seen:
+            self._base_seen[torch.from_numpy(prefix).to(dev)] = True
+        self._stats["shared_prefix_pages"] = n_pre
+
+    def _start_cache(self):
+        B, dev = self.num_slots, self._device
+        self._cache = self._new_cache()
+        self._pending = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._pending_lp = torch.zeros(B, dtype=torch.float32, device=dev)
 
     @property
     def idle(self) -> bool:
@@ -231,24 +356,25 @@ class ContinuousBatcher:
         return {self._slot_req[s]: self._result(s)
                 for s in range(self.num_slots) if self._active[s]}
 
-    def _validate(self, prompt, budget, label=""):
+    def _validate(self, prompt, budget, plen_pre, label=""):
         P = self.prompt_len
         if budget < 1:
             raise ValueError(f"max_new_tokens{label} must be >= 1")
         if len(prompt) < 1:
             raise ValueError(f"prompt{label} must be non-empty")
-        if len(prompt) + budget + self.chunk > self.max_decode_len:
+        if plen_pre + len(prompt) + budget + self.chunk > self.max_decode_len:
             raise ValueError(
-                f"request{label}: prompt {len(prompt)} + budget {budget} + "
-                f"chunk {self.chunk} overruns max_decode_len "
+                f"request{label}: prefix {plen_pre} + prompt {len(prompt)} + "
+                f"budget {budget} + chunk {self.chunk} overruns max_decode_len "
                 f"{self.max_decode_len}")
         # The last prefill round writes a full P-wide chunk at its start.
-        window = -(-len(prompt) // P) * P
+        window = plen_pre + -(-len(prompt) // P) * P
         if window > self.max_decode_len:
             raise ValueError(
-                f"request{label}: the padded prefill window (ceil(len/{P})*{P}"
-                f" = {window}) overruns max_decode_len {self.max_decode_len} "
-                "— grow the model's cache or lower prompt_len")
+                f"request{label}: the padded prefill window (prefix {plen_pre} "
+                f"+ ceil(len/{P})*{P} = {window}) overruns max_decode_len "
+                f"{self.max_decode_len} — grow the model's cache or lower "
+                "prompt_len")
 
     def submit(self, prompt, max_new_tokens: int, request_id=None):
         """Enqueue one request (admitted at the next :meth:`step`); returns
@@ -256,7 +382,7 @@ class ContinuousBatcher:
         if self._spec is None:
             self.reset()
         budget = int(max_new_tokens)
-        self._validate(prompt, budget)
+        self._validate(prompt, budget, self._plen_pre)
         if request_id is None:
             request_id = self._next_id
             self._next_id += 1
@@ -267,11 +393,23 @@ class ContinuousBatcher:
         self._queue.append((request_id, np.asarray(prompt, np.int64)))
         return request_id
 
+    def _pages_needed(self, plen, budget):
+        """Own pages a request writes: its prompt and budget rounded up to
+        whole chunks, or its padded prefill window, past the prefix's full
+        pages."""
+        P = self.prompt_len
+        written = max(
+            self._plen_pre + plen + -(-budget // self.chunk) * self.chunk,
+            self._plen_pre + -(-plen // P) * P)
+        return -(-written // self._page) - self._n_shared_full
+
+    @torch.no_grad()
     def _admit(self):
-        """Fill free slots from the queue, prefilling only the admitted rows
-        in ceil(len/P) rounds of width P."""
-        B, P = self.num_slots, self.prompt_len
-        dev = self._device
+        """Fill free slots from the queue (paged: while the pool has the
+        pages), prefilling only the admitted rows in ceil(len/P) rounds of
+        width P."""
+        B, P, dev = self.num_slots, self.prompt_len, self._device
+        paged, plen_pre = self._paged, self._plen_pre
         free = np.flatnonzero(~self._active)
         if not (self._queue and free.size):
             return False
@@ -279,20 +417,53 @@ class ContinuousBatcher:
         for s in free:
             if not self._queue:
                 break
-            rid, prompt = self._queue.popleft()
+            rid, prompt = self._queue[0]
+            if paged:
+                need = self._pages_needed(len(prompt), self._budgets[rid])
+                if need > len(self._free_pages):
+                    break  # defer; FIFO order kept
+                alloc = [self._free_pages.popleft() for _ in range(need)]
+                self._slot_pages[s] = alloc
+                nf = self._n_shared_full
+                self._tables[s] = 0
+                self._tables[s, :nf] = self._shared_ids[:nf]
+                self._tables[s, nf:nf + need] = alloc
+            self._queue.popleft()
             admitted.append((int(s), prompt))
             self._slot_req[s] = rid
             self._slot_toks[s] = []
             self._slot_lps[s] = []
             self._active[s] = True
-            self._lengths[s] = len(prompt)
+            self._lengths[s] = plen_pre + len(prompt)
+        if paged and not admitted and not self._active.any():
+            rid, prompt = self._queue[0]
+            allocatable = (self._n_pages - 1
+                           - self._stats.get("shared_prefix_pages", 0))
+            raise ValueError(
+                f"request {rid} needs "
+                f"{self._pages_needed(len(prompt), self._budgets[rid])} pages "
+                f"but the pool only has {allocatable} allocatable (after the "
+                "shared prefix) — grow kv_num_pages")
+        if not admitted:
+            return False
         if self._cache is None:
-            self._cache = {k: torch.zeros((B,) + shape, dtype=dt, device=dev)
-                           for k, (shape, dt) in self._spec.items()}
-            self._pending = torch.zeros(B, dtype=torch.int64, device=dev)
-            self._pending_lp = torch.zeros(B, dtype=torch.float32, device=dev)
+            self._start_cache()
         if self._needs_seen:
-            self._seen[[s for s, _ in admitted]] = False
+            self._seen[[s for s, _ in admitted]] = self._base_seen
+        if paged:
+            self._push_tables()
+            self._stats["peak_pages_in_use"] = max(
+                self._stats["peak_pages_in_use"],
+                sum(len(p) for p in self._slot_pages)
+                + self._stats.get("shared_prefix_pages", 0))
+            if self._prefix_tail_page is not None:
+                # Each request's private copy of the prefix's partial page,
+                # which its own writes extend.
+                dst = torch.tensor([self._slot_pages[s][0] for s, _ in admitted],
+                                   device=dev)
+                for k, v in self._cache.items():
+                    if _leaf(k) in _POOL_LEAVES:
+                        v[dst] = v[self._prefix_tail_page].clone()
 
         rounds = max(-(-len(pr) // P) for _, pr in admitted)
         for c in range(rounds):
@@ -304,15 +475,15 @@ class ContinuousBatcher:
                 sub[i, :len(piece)] = piece
             sub_ln = torch.tensor([len(piece) for _, piece, _ in writers],
                                   dtype=torch.int32, device=dev)
-            # Round 0 starts the rows from an empty cache; later rounds
-            # continue from their live rows (earlier chunks live there).
-            cache_in = ({} if c == 0 else
-                        {k: v[rows] for k, v in self._cache.items()})
+            pos0 = plen_pre + c * P
             fresh, tok, lp, seen = self._prefill(
-                cache_in, torch.from_numpy(sub).to(dev), sub_ln, c * P,
+                self._sub_cache(rows, pos0, c == 0),
+                torch.from_numpy(sub).to(dev), sub_ln, pos0,
                 self._seen[rows] if self._needs_seen else None)
             for k, v in fresh.items():
-                self._cache[k][rows] = v
+                # Paged pools were written in place; tables are the host's.
+                if not paged or _leaf(k) == "cache_index":
+                    self._cache[k][rows] = v
             if self._needs_seen:
                 self._seen[rows] = seen
             # The first generated token comes from each row's final chunk.
@@ -371,7 +542,13 @@ class ContinuousBatcher:
                     del self._budgets[rid]
                     self._active[s] = False
                     self._stats["wasted_slot_steps"] += chunk - 1 - j
+                    if self._paged:  # recycle; the row now points at scratch
+                        self._free_pages.extend(self._slot_pages[s])
+                        self._slot_pages[s] = []
+                        self._tables[s] = 0
                     break
+        if self._paged and finished:
+            self._push_tables()
         # Dead rows keep decoding until recycled; keep their positions
         # inside the cache for absolute-position embed hooks.
         self._lengths = np.where(self._active, self._lengths,
@@ -381,17 +558,22 @@ class ContinuousBatcher:
     def serve(self, prompts: Sequence[Any], max_new_tokens,
               shared_prefix=None) -> list:
         """Serve a whole workload (:meth:`reset`, :meth:`submit` each
-        request, :meth:`step` until idle). Returns each request's tokens
-        (or (tokens, logprobs)) in submission order; ``self.last_stats``
-        holds the run's counters."""
+        request, :meth:`step` until idle). ``shared_prefix``: tokens every
+        request's sequence starts with (paged mode only; each output
+        continues prefix + prompt). Returns each request's tokens (or
+        (tokens, logprobs)) in submission order; ``self.last_stats`` holds
+        the run's counters (admission_events, prefill_rounds, chunks,
+        wasted_slot_steps, decoded_tokens; paged mode adds
+        peak_pages_in_use and, with a prefix, shared_prefix_pages)."""
         n = len(prompts)
         budgets = ([int(max_new_tokens)] * n if np.ndim(max_new_tokens) == 0
                    else [int(b) for b in max_new_tokens])
         if len(budgets) != n:
             raise ValueError("max_new_tokens must be scalar or match "
                              "len(prompts)")
+        plen_pre = 0 if shared_prefix is None else len(shared_prefix)
         for i, (pr, b) in enumerate(zip(prompts, budgets)):
-            self._validate(pr, b, label=f" {i}")
+            self._validate(pr, b, plen_pre, label=f" {i}")
         self.reset(shared_prefix=shared_prefix)
         results: list = [None] * n
         for i, (pr, b) in enumerate(zip(prompts, budgets)):

@@ -4,7 +4,8 @@ Port of ``ku/nn/transformer.py``:
 
 - :class:`Transformer`: 2 × (MHA + dropout + residual + LayerNorm), then a
   4×-wide swish FFN + dropout + residual + LayerNorm; forwards the
-  attention options, including the dense-cache decode protocol.
+  attention options, including the KV-cache decode protocol (dense, paged
+  or int8 caches).
 - :class:`InterferedTransformer`: the same conditioned on a per-sample
   embedding, tiled over the sequence and concatenated before a relu FFN.
 

@@ -270,3 +270,166 @@ def test_generate_on_the_card_goes_through_both_kernels(device):
     ids_p, lps_p = generate(plain, prompts, 12, **io)
     assert torch.equal(ids, ids_p)
     torch.testing.assert_close(lps, lps_p, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Paged flash decoding (kernel #7) against its plain version: permuted
+# tables whose dead tails point at a NaN-poisoned page, a length past the
+# table's end, pages that are not a multiple of 32 slots; f32, bf16, int8.
+# ---------------------------------------------------------------------------
+
+from ku_torch.nn import ContinuousBatcher  # noqa: E402
+
+
+def _paged_inputs(device, dtype, b, hkv, g_, d, pg, mp, lengths, int8, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_pool = b * mp + 1
+    order = torch.randperm(n_pool, generator=gen, device=device)
+    poison, table = order[-1], order[:-1].view(b, mp).to(torch.int32)
+    for row, n in enumerate(lengths):
+        table[row, max(0, -(-n // pg)):] = poison
+    q = torch.randn(b, hkv, g_, d, generator=gen, device=device).to(dtype)
+    kw = {}
+    if int8:
+        k, v = (torch.randint(-127, 128, (n_pool, hkv, d, pg), generator=gen,
+                              device=device).to(torch.int8) for _ in range(2))
+        kw["k_scale"], kw["v_scale"] = (
+            torch.rand(n_pool, hkv, pg, generator=gen, device=device) * 0.02
+            for _ in range(2))
+        kw["k_scale"][poison] = kw["v_scale"][poison] = float("nan")
+    else:
+        k, v = (torch.randn(n_pool, hkv, d, pg, generator=gen, device=device).to(dtype)
+                for _ in range(2))
+        k[poison] = v[poison] = float("nan")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k, v, table, lengths, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=3, hkv=2, g=4, d=128, pg=16, mp=8, lengths=[1, 16, 200], softcap=None),
+    dict(b=2, hkv=2, g=1, d=64, pg=256, mp=3, lengths=[300, 1], softcap=2.0),
+    dict(b=3, hkv=1, g=16, d=80, pg=7, mp=5, lengths=[35, 0, 13], softcap=None,
+         int8=True),
+])
+def test_paged_decode_attention_matches_plain(device, case, dtype):
+    c = case
+    q, k, v, table, lengths, kw = _paged_inputs(
+        device, dtype, c["b"], c["hkv"], c["g"], c["d"], c["pg"], c["mp"],
+        c["lengths"], c.get("int8", False), seed=3)
+    kw.update(softmax_scale=0.05, logit_softcap=c["softcap"])
+    before = da.decode_attention_paged_cuda.launches
+    out = da.decode_attention_paged(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention_paged_cuda.launches == before + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, da.decode_attention_paged_torch(q, k, v, table, lengths, **kw),
+        **SERVE_TOL[dtype])
+
+
+def test_paged_decode_attention_overrun_reads_the_whole_window(device):
+    q, k, v, table, _, _ = _paged_inputs(device, torch.float32, 2, 2, 4, 32, 8, 3,
+                                         [24, 24], False, seed=4)
+    full = torch.full((2,), 24, dtype=torch.int32, device=device)
+    over = torch.tensor([25, 1000], dtype=torch.int32, device=device)
+    torch.testing.assert_close(da.decode_attention_paged_cuda(q, k, v, table, over),
+                               da.decode_attention_paged_cuda(q, k, v, table, full),
+                               rtol=0, atol=0)
+
+
+def test_paged_decode_attention_identity_table_is_the_dense_kernel(device):
+    gen = torch.Generator(device=device).manual_seed(5)
+    q = torch.randn(3, 2, 4, 64, generator=gen, device=device)
+    k, v = (torch.randn(3, 2, 64, 300, generator=gen, device=device)
+            for _ in range(2))
+    lengths = torch.tensor([300, 129, 1], dtype=torch.int32, device=device)
+    table = torch.arange(3, dtype=torch.int32, device=device)[:, None]
+    torch.testing.assert_close(da.decode_attention_paged_cuda(q, k, v, table, lengths),
+                               da.decode_attention_cuda(q, k, v, lengths),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(device):
+    q, k, v, table, lengths, _ = _paged_inputs(device, torch.float32, 2, 1, 2, 16,
+                                               4, 3, [5, 9], False, seed=6)
+    with pytest.raises(ValueError, match="page_table must be int32"):
+        da.decode_attention_paged_cuda(q, k, v, table.long(), lengths)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention_paged_cuda(q, k, v, table.cpu(), lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_paged_cuda(q, k, v, table.t().contiguous().t(), lengths)
+    with pytest.raises(ValueError, match="up to 16"):
+        da.decode_attention_paged_cuda(q.repeat(1, 1, 9, 1), k, v, table, lengths)
+    with pytest.raises(ValueError, match="int8 caches"):
+        da.decode_attention_paged_cuda(q, k.to(torch.int8), v.to(torch.int8),
+                                       table, lengths)
+
+
+def _tiny_lm(device, **kw):
+    gen = torch.Generator(device=device).manual_seed(0)
+    return Transformer(4, 32, causal=True, rope=True, num_kv_head=2,
+                       max_decode_len=64, device=device, generator=gen, **kw)
+
+
+@pytest.mark.parametrize("cache_kw", [dict(kv_page_size=16),
+                                      dict(kv_page_size=16, kv_cache_dtype="int8")])
+def test_paged_generate_on_the_card_goes_through_the_paged_kernel(device, cache_kw):
+    """Paged generate launches the flash kernel for the prefill and the
+    paged decode kernel (never the dense one) for every step, and emits
+    the ids of its plain paths."""
+    fast = _tiny_lm(device, use_flash=True, **cache_kw)
+    plain = _tiny_lm(device, use_flash=False, flash_decode=False, **cache_kw)
+    plain.load_state_dict(fast.state_dict())
+    table = torch.randn(50, 32, generator=torch.Generator(device=device).manual_seed(1),
+                        device=device)
+    prompts = torch.randint(0, 50, (3, 9), device=device)
+    lens = torch.tensor([9, 4, 6], dtype=torch.int32, device=device)
+    io = dict(embed=lambda i, p=None: table[i], readout=lambda y: y @ table.T,
+              prompt_lengths=lens)
+    f0, d0 = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    p0 = da.decode_attention_paged_cuda.launches
+    ids = generate(fast, prompts, 12, **io)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_cuda.launches - f0 == 2
+    assert da.decode_attention_paged_cuda.launches - p0 == 2 * 11
+    assert da.decode_attention_cuda.launches == d0
+    assert torch.equal(ids, generate(plain, prompts, 12, **io))
+
+
+def test_reallocated_page_is_never_written_by_its_former_row_on_the_card(device):
+    """The batcher's hazard on the card: a finished row points at scratch
+    before the next decode chunk, so its freed pages stay as they were until
+    a new request is admitted into them, and that request emits what it
+    emits alone."""
+    model = _tiny_lm(device, use_flash=True, kv_page_size=4, kv_num_pages=7)
+    table = torch.randn(50, 32, generator=torch.Generator(device=device).manual_seed(2),
+                        device=device)
+    io = dict(embed=lambda i, p=None: table[i], readout=lambda y: y @ table.T)
+    cb = ContinuousBatcher(model, num_slots=2, prompt_len=4, chunk=2,
+                           max_decode_len=64, **io)
+    cb.reset()
+    rng = np.random.default_rng(5)
+    a, c, b = (rng.integers(0, 50, size=(n,)) for n in (3, 4, 2))
+    cb.submit(a, 4)
+    cb.submit(c, 12)
+    assert cb.step() == {}
+    pages_a = list(cb._slot_pages[0])
+    assert list(cb.step()) == [0]
+    assert torch.all(cb._table[0] == 0)
+    before = {k: t[pages_a].clone() for k, t in cb._cache.items()
+              if k.endswith(("pages_k", "pages_v"))}
+    p0 = da.decode_attention_paged_cuda.launches
+    assert cb.step() == {}
+    torch.cuda.synchronize()
+    assert da.decode_attention_paged_cuda.launches - p0 == 2 * 2
+    for k, t in before.items():
+        assert torch.equal(cb._cache[k][pages_a], t), k
+    cb.submit(b, 4)
+    out = cb.step()
+    assert sorted(cb._slot_pages[0]) == sorted(pages_a)
+    while not cb.idle:
+        out.update(cb.step())
+    alone = generate(_tiny_lm(device, use_flash=True, kv_page_size=4),
+                     torch.from_numpy(b).to(device)[None], 4, **io)
+    np.testing.assert_array_equal(out[2], alone[0].cpu().numpy())
