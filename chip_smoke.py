@@ -8,8 +8,9 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: CUDA must be present; print the card's name and power limit.
-2. Build: compile the three kernels of ku_torch/csrc with nvcc, one process
-   per source, all started together; print their register and spill lines.
+2. Build: compile the four kernel sources of ku_torch/csrc with nvcc, one
+   process per source, all started together; print their register and
+   spill lines.
 3. CD kernel against its plain version on the card, same inputs:
    - saturated biases (every draw certain), Bernoulli, k = 1 and 2, ragged
      last batch, 2 epochs: params and scores rtol 1e-5 / atol 1e-5;
@@ -97,9 +98,39 @@ Phases (any failure raises and the script exits non-zero):
    device time a launch on the path from a profiler window over 8 paged
    decode steps. No single PyTorch call reads through a page table, so its
    `library_ms` is null.
+14. (After the serving models are freed.) The flash backward kernels (dq,
+   and dk/dv) against their plain versions on the card, on the same o, lse
+   and delta: f32 rtol/atol 1e-4; bf16 rtol 2e-2 and atol 1e-2 of each
+   gradient's largest entry (p and ds are rounded to bf16 before their
+   products). Ragged N and KN, G 1 and 4, window, segment ids, softcap,
+   scalar and per-row offsets, dO through a transposed view, rows with no
+   live key (dq 0), and the training shape (B 8, H 16 over 4, N = KN =
+   1,024, D 128, causal).
+15. The 0.87B LM trained at full width through ku_torch.engine_ext.Trainer:
+   the serving LM's blocks between a tied 1,024 x 2,048 embedding and
+   readout, next-token cross-entropy on sequences that repeat a 64-token
+   motif, Adam at 3e-5. In f32 (TF32 off), batch 2 x 1,024: one step's
+   loss and every gradient through the kernels against the plain paths
+   (use_flash=False, the dense path), gradients at rtol 1e-3 and atol 1e-3
+   of each tensor's largest entry; then `fit`, 2 epochs over 32 sequences
+   at batch 4, whose loss must be finite and fall. In bf16, batch 8 x
+   1,024: 2 warm-up `train_step`s and 8 timed ones, losses finite. Every
+   step launches the forward, dq and dk/dv kernels 32 times each (one per
+   attention sublayer) and no decode kernel. Peak memory of each part.
+16. Training timing: train tokens/s from the median of the 8 steps (CUDA
+   events); a torch.profiler window over one bf16 step (wall time, device
+   busy share, ops by device time, each flash kernel's device time a
+   launch: `path_ms`); the same step through the plain paths (dense
+   attention), 4 steps, as a yardstick; each backward kernel alone at the
+   training shape, cold in L2, against its bound (6·D operations a live
+   pair for dq, 8·D for dk/dv, at the bf16 tensor-core peak, or the bytes
+   at the memory rate), its plain version and `library_ms`: autograd
+   through scaled_dot_product_attention with the same causal mask, minus
+   that call's forward (it computes dq, dk and dv together). Each timed
+   call runs once untimed first.
 
-The last lines are the `kernels` JSON line, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+The last lines are the `kernels` JSON line (6 kernels), the card's name
+and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -117,12 +148,14 @@ import torch
 import torch.nn.functional as F
 
 from ku_torch.ebm import DBN, RBM
+from ku_torch.engine_ext import Trainer, adam
 from ku_torch.kernels import _build, cd_gibbs
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
 
 DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
+BWD_KERNELS = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
 
 N, V_DIM, H_DIM, BATCH, EPOCHS, K = 60032, 784, 128, 128, 3, 1
 LR = 1e-3
@@ -138,6 +171,14 @@ CB_SLOTS, CB_PROMPT_LEN, CB_CHUNK, CB_REQUESTS = 8, 64, (8, 32), 24
 # prompt width, shared prefix and request lengths.
 PAGE, PAGED_MAX_LEN, PG_P, PG_MIN = 256, 2048, 1024, 640
 CBP_PAGES, CBP_PROMPT_LEN, CBP_PREFIX, CBP_MIN, CBP_MAX = 24, 256, 300, 64, 704
+# The training phases: sequences of TRAIN_N + 1 tokens (a TRAIN_PERIOD-token
+# motif repeated), TRAIN_SEQS of them; bf16 steps at batch TRAIN_B, f32
+# gradients compared at F32_GRAD_B and `fit` at F32_FIT_B. Adam's rate: at
+# 1e-4 this LM's loss spikes within its first steps from the seed (9.2 to
+# 15.2 at step 3 in f32), through the kernels and the plain paths alike;
+# 3e-5 falls smoothly.
+TRAIN_N, TRAIN_PERIOD, TRAIN_SEQS, TRAIN_B, TRAIN_TIMED = 1024, 64, 32, 8, 8
+F32_GRAD_B, F32_FIT_B, TRAIN_LR = 2, 4, 3e-5
 FLUSH_BYTES = 256 << 20  # written before each cold call: past the 50 MB L2
 
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
@@ -495,10 +536,12 @@ class LM(torch.nn.Module):
                 max_decode_len=LM_MAX_LEN, use_flash=True, device=DEVICE,
                 dtype=torch.float32, generator=generator))
 
-    def forward(self, xs, decode=False, prompt_lengths=None, cache=None):
+    def forward(self, xs, decode=False, prompt_lengths=None, cache=None,
+                deterministic=True):
         x = xs[0]
         for i in range(LM_BLOCKS):
-            out = getattr(self, f"block{i}")([x], decode=decode,
+            out = getattr(self, f"block{i}")([x], deterministic=deterministic,
+                                             decode=decode,
                                              prompt_lengths=prompt_lengths,
                                              cache=cache, scope=f"block{i}")
             x, cache = out if decode else (out, cache)
@@ -506,8 +549,7 @@ class LM(torch.nn.Module):
 
 
 def zero_counts():
-    fa.flash_fwd_cuda.launches = 0
-    for k in DECODE_KERNELS:
+    for k in (fa.flash_fwd_cuda,) + BWD_KERNELS + DECODE_KERNELS:
         k.launches = 0
 
 
@@ -1198,6 +1240,338 @@ def serving_path(dev, name) -> list:
     }, paged]
 
 
+# ---------------------------------------------------------------------------
+# The training path (phases 14-16).
+# ---------------------------------------------------------------------------
+
+# The backward kernels against their plain versions: f32 sums in another
+# order (rtol/atol 1e-4); bf16 rtol 2e-2 and atol 1e-2 of the largest
+# entry, since p and ds are rounded to bf16 before their products and an
+# f32 ulp in a score can move one of those roundings (2^-8 of the value).
+def bwd_close(got, want, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=what)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=1e-2 * float(want.float().abs().max()), msg=what)
+
+
+def bwd_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
+             softcap=None, segments=False, q_offset=None, k_offset=None,
+             strided_do=False, seed=0):
+    """Both backward kernels against their plain versions on the same
+    inputs (o and lse from the forward kernel); returns the largest abs
+    difference of (dq, dk/dv)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    if strided_do:  # as autograd hands it over, through the heads' transpose
+        do = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    seg = None
+    if segments:
+        seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=dev),
+                         dim=1).values.to(torch.int32)
+    kw = dict(softmax_scale=1.0 / math.sqrt(h * d), causal=causal, window=window,
+              segment_ids=seg, q_offset=q_offset, k_offset=k_offset,
+              logit_softcap=softcap)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = fa._delta(o, do)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+    for what, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"{what} not finite")
+        bwd_close(got, want, dtype, what)
+    dead = lse == fa._MASKED  # rows with no live key
+    check(bool((dq.float().abs().sum(-1) * dead).sum() == 0), "a dead row has dq != 0")
+    diffs = (_max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv, dv_p)))
+    log(f"  flash bwd {str(dtype)[6:]} B{b} H{h}/{hkv} N{n} KN{kn} D{d} causal {causal} "
+        f"window {window} softcap {softcap} segments {segments} offsets "
+        f"{'rows' if torch.is_tensor(q_offset) else q_offset}/{k_offset} strided dO "
+        f"{strided_do}, {int(dead.sum())} dead rows: max abs diff dq {diffs[0]:.3e} "
+        f"(largest {float(dq_p.float().abs().max()):.3e}), dk/dv {diffs[1]:.3e} "
+        f"(largest {float(torch.maximum(dk_p.float().abs().max(), dv_p.float().abs().max())):.3e})")
+    return diffs
+
+
+def backward_kernels_vs_plain(dev):
+    """Phase 14; returns the largest abs difference of (dq, dk/dv)."""
+    rows = lambda *x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    worst = [0.0, 0.0]
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [
+            # Ragged shapes and every mask, G 1 and 4.
+            dict(b=2, h=4, hkv=2, n=37, kn=53, d=64, window=7, softcap=1.5,
+                 q_offset=rows(16, 3), seed=1),
+            dict(b=2, h=4, hkv=1, n=70, kn=70, d=32, segments=True, q_offset=3,
+                 k_offset=1, seed=2),
+            dict(b=1, h=3, hkv=3, n=5, kn=130, d=128, causal=False, seed=3),
+            dict(b=2, h=8, hkv=2, n=130, kn=130, d=128, softcap=30.0, strided_do=True,
+                 seed=4),
+            # Rows with no live key: queries 0..9 of row 0 inside a visited
+            # tile, all of row 1 with no tile visited.
+            dict(b=2, h=2, hkv=1, n=70, kn=70, d=32, k_offset=10,
+                 q_offset=rows(0, -80), seed=5),
+            # The training step's shape.
+            dict(b=TRAIN_B, h=LM_HEADS, hkv=LM_KV_HEADS, n=TRAIN_N, kn=TRAIN_N,
+                 d=LM_D // LM_HEADS, strided_do=True, seed=6),
+        ]
+        for c in cases:
+            dims = [c.pop(x) for x in ("b", "h", "hkv", "n", "kn", "d")]
+            diffs = bwd_case(dev, dtype, *dims, **c)
+            worst = [max(w, x) for w, x in zip(worst, diffs)]
+    return worst
+
+
+class TrainLM(torch.nn.Module):
+    """The serving LM's blocks between a tied embedding and readout: a
+    (LM_VOCAB, LM_D) table, ``ku``'s ``embed/embedding``, read out as
+    ``y @ tableᵀ``; next-token logits (B, N, LM_VOCAB)."""
+
+    def __init__(self, generator, table):
+        super().__init__()
+        self.embed = torch.nn.Embedding(LM_VOCAB, LM_D, device=DEVICE)
+        with torch.no_grad():
+            self.embed.weight.copy_(table)
+        self.core = LM(generator)
+
+    def forward(self, ids, deterministic=True):
+        y = self.core([self.embed(ids)], deterministic=deterministic)
+        return y @ self.embed.weight.T
+
+
+def next_token_xent(y_true, logits):
+    """Per-sequence mean next-token cross-entropy, in f32."""
+    return F.cross_entropy(logits.float().transpose(1, 2), y_true,
+                           reduction="none").mean(-1)
+
+
+def train_counts():
+    """(flash fwd, dq, dk/dv, dense decode, paged decode) launches."""
+    return (fa.flash_fwd_cuda.launches,) + tuple(
+        k.launches for k in BWD_KERNELS + DECODE_KERNELS)
+
+
+def check_step_launches(steps, what):
+    want = (2 * LM_BLOCKS * steps,) * 3 + (0, 0)
+    check(train_counts() == want, f"{what}: launches (fwd, dq, dkv, dense, paged) "
+          f"{train_counts()}, expected {want}")
+
+
+def periodic_sequences(rng, rows, width):
+    """Each row a random TRAIN_PERIOD-token motif repeated: after its first
+    period, every next token is a copy from TRAIN_PERIOD back."""
+    motif = rng.integers(0, LM_VOCAB, size=(rows, TRAIN_PERIOD))
+    return torch.from_numpy(np.tile(motif, (1, -(-width // TRAIN_PERIOD)))[:, :width]
+                            ).to(DEVICE)
+
+
+def gib(nbytes) -> str:
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def f32_training(lm, seqs):
+    """Phase 15, float32 (TF32 off): one step's gradients through the kernels
+    against the plain paths, then `fit`. Returns the largest gradient
+    difference relative to its tensor's largest entry."""
+    x, y = seqs[:F32_GRAD_B, :-1], seqs[:F32_GRAD_B, 1:]
+    initial = copy.deepcopy(lm.state_dict())
+    runs = {}
+    for kernels in (True, False):
+        set_attention_paths(lm, kernels)
+        lm.load_state_dict(initial)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
+        loss = tr.train_step(x, y)["loss"]
+        torch.cuda.synchronize()
+        if kernels:
+            check_step_launches(1, "f32 step through the kernels")
+        else:
+            check(train_counts() == (0,) * 5, f"plain step launched {train_counts()}")
+        runs[kernels] = (loss, {n: p.grad.clone() for n, p in lm.named_parameters()},
+                         torch.cuda.max_memory_allocated())
+        del tr
+    set_attention_paths(lm, True)
+    (loss_k, grads_k, peak_k), (loss_p, grads_p, peak_p) = runs[True], runs[False]
+    check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
+          f"f32 step loss through the kernels {loss_k} against plain {loss_p}")
+    worst, worst_name = 0.0, ""
+    for n, gp in grads_p.items():
+        gk, top = grads_k[n], float(gp.abs().max())
+        check(bool(torch.isfinite(gk).all()), f"non-finite gradient {n}")
+        torch.testing.assert_close(gk, gp, rtol=1e-3, atol=1e-3 * top, msg=n)
+        rel = float((gk - gp).abs().max()) / max(top, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"f32 LM train step, B {F32_GRAD_B} x {TRAIN_N} tokens: loss {loss_k:.6f} through "
+        f"the kernels, {loss_p:.6f} through the plain paths; {len(grads_k)} gradients "
+        f"agree, largest difference {worst:.3e} of its tensor's largest entry "
+        f"({worst_name}); peak memory {gib(peak_k)} (kernels), {gib(peak_p)} (plain)")
+    del runs, grads_k, grads_p
+
+    # fit: 2 epochs over 32 sequences, from the same initial weights.
+    lm.load_state_dict(initial)
+    del initial
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
+    t0 = time.perf_counter()
+    history = tr.fit(seqs[:, :-1], seqs[:, 1:], batch_size=F32_FIT_B, epochs=2, verbose=0)
+    t_fit = time.perf_counter() - t0
+    steps = 2 * (seqs.shape[0] // F32_FIT_B)
+    check_step_launches(steps, "f32 fit")
+    check(all(math.isfinite(h) for h in history) and history[1] < history[0],
+          f"f32 fit loss did not fall: {history}")
+    log(f"f32 LM fit, {seqs.shape[0]} sequences of {TRAIN_N}, batch {F32_FIT_B}, 2 epochs "
+        f"({steps} steps, {t_fit:.2f} s): epoch losses {history}; launches (fwd, dq, dkv) "
+        f"{train_counts()[:3]}; peak memory {gib(torch.cuda.max_memory_allocated())}")
+    return worst
+
+
+def bwd_bound(which, b, h, hkv, n, d, itemsize, peak_bf16, peak_bw):
+    """(bound ms, bound_by) of one causal backward kernel at offset 0: dq
+    does 6·D operations a live pair (s, dp, dq), dk/dv 8·D (s, dp, dv, dk);
+    each reads q, k, v, dO, lse and delta once and writes its gradients."""
+    pairs = b * h * n * (n + 1) // 2
+    flops = (6 if which == "dq" else 8) * pairs * d
+    reads = (2 * b * h + 2 * b * hkv) * n * d * itemsize + 2 * b * h * n * 4
+    writes = (b * h if which == "dq" else 2 * b * hkv) * n * d * itemsize
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, (reads + writes) / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def training_path(dev, name) -> list:
+    """Phases 14-16; returns the entries of the two backward kernels."""
+    dq_err, dkv_err = backward_kernels_vs_plain(dev)
+    _, peak_bf16, peak_bw = peaks(name)
+
+    # 15. The LM trained at full width, weights from a seed.
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy((rng.normal(size=(LM_VOCAB, LM_D)) * 0.05).astype(np.float32))
+    lm = TrainLM(g, table)
+    seqs = periodic_sequences(rng, TRAIN_SEQS, TRAIN_N + 1)
+    log(f"training LM: {sum(p.numel() for p in lm.parameters()) / 1e9:.3f}B parameters "
+        f"({LM_BLOCKS} blocks, tied {LM_VOCAB} x {LM_D} table), {TRAIN_SEQS} sequences of "
+        f"{TRAIN_N + 1} tokens (a {TRAIN_PERIOD}-token motif repeated), Adam lr {TRAIN_LR}")
+    grad_err = f32_training(lm, seqs)
+
+    lm = lm.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    x, y = seqs[:TRAIN_B, :-1], seqs[:TRAIN_B, 1:]
+    tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [tr.train_step(x, y)["loss"] for _ in range(2)]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_TIMED)]
+    for start, end in events:
+        start.record()
+        losses.append(tr.train_step(x, y)["loss"])
+        end.record()
+    torch.cuda.synchronize()
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    launches = train_counts()
+    check_step_launches(2 + TRAIN_TIMED, "bf16 train_step")
+    check(all(math.isfinite(v) for v in losses), f"bf16 losses {losses}")
+    median_ms = float(np.median(step_ms))
+    tokens_per_s = TRAIN_B * TRAIN_N / (median_ms / 1e3)
+    log(f"bf16 LM train_step, B {TRAIN_B} x {TRAIN_N} tokens: losses {losses}; launches "
+        f"(fwd, dq, dkv) {launches[:3]}; peak memory "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    log(f"train: step {median_ms:.3f} ms median of {TRAIN_TIMED} (CUDA events; "
+        f"{step_ms[0]:.3f}..{step_ms[-1]:.3f}), {tokens_per_s:.1f} tokens/s")
+
+    # 16. Where a step's time goes, and each backward kernel alone.
+    wall, rows, clocks = profiled(lambda: tr.train_step(x, y))
+    log_profile("one bf16 train step", wall, rows, clocks)
+    path = {k: per_launch_ms(rows, k) for k in
+            ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    attn_us = sum(r[0] for r in rows if "flash_" in r[2])
+    log(f"profile: attention kernels {attn_us / 1e3:.3f} ms of {sum(r[0] for r in rows) / 1e3:.3f} "
+        f"ms device time; a launch on the path: fwd {path['flash_fwd_kernel']:.4f} ms, "
+        f"dq {path['flash_bwd_dq_kernel']:.4f} ms, dk/dv {path['flash_bwd_dkv_kernel']:.4f} ms")
+    # The same step through the plain paths (use_flash=False: dense
+    # attention, cuBLAS products), as a yardstick for the whole step.
+    set_attention_paths(lm, False)
+    tr.train_step(x, y)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for start, end in events[:4]:
+        start.record()
+        tr.train_step(x, y)
+        end.record()
+    torch.cuda.synchronize()
+    check(train_counts() == (0,) * 5, f"plain steps launched {train_counts()}")
+    plain_step_ms = float(np.median([s.elapsed_time(e) for s, e in events[:4]]))
+    log(f"train through the plain paths: step {plain_step_ms:.3f} ms median of 4, "
+        f"{TRAIN_B * TRAIN_N / (plain_step_ms / 1e3):.1f} tokens/s, "
+        f"{median_ms / plain_step_ms:.3f} x the kernels' step time; peak memory "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    del tr, lm
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf, hd = torch.bfloat16, LM_D // LM_HEADS
+    q = torch.randn(TRAIN_B, LM_HEADS, TRAIN_N, hd, generator=gen, device=dev).to(bf)
+    k, v = (torch.randn(TRAIN_B, LM_KV_HEADS, TRAIN_N, hd, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    do = torch.randn(TRAIN_B, LM_HEADS, TRAIN_N, hd, generator=gen, device=dev).to(bf)
+    kw = dict(softmax_scale=1.0 / math.sqrt(LM_D), causal=True)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = fa._delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    mask = (torch.arange(TRAIN_N, device=dev)[None, :]
+            <= torch.arange(TRAIN_N, device=dev)[:, None])[None, None].expand(
+                TRAIN_B, 1, TRAIN_N, TRAIN_N)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qr, kr, vr, attn_mask=mask, scale=kw["softmax_scale"], enable_gqa=True)
+    sdpa_grad = lambda: torch.autograd.grad(sdpa(), (qr, kr, vr), do)  # noqa: E731
+    sdpa_grad()  # each call timed below runs once first (workspaces, allocator)
+    lib_fwd_ms = timed_cold_ms(sdpa, 10)
+    lib_ms = timed_cold_ms(sdpa_grad, 10) - lib_fwd_ms
+    entries = []
+    for which, kernel, plain, err in (
+            ("dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_torch, dq_err),
+            ("dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_torch, dkv_err)):
+        ms = timed_cold_ms(lambda: kernel(*args, **kw), 10)
+        plain(*args, **kw)
+        plain_ms = timed_cold_ms(lambda: plain(*args, **kw), 3)
+        bound_ms, bound_by = bwd_bound(which, TRAIN_B, LM_HEADS, LM_KV_HEADS, TRAIN_N, hd,
+                                       2, peak_bf16, peak_bw)
+        path_ms = path[f"flash_bwd_{which}_kernel"]
+        log(f"flash_bwd_{which} at B{TRAIN_B} H{LM_HEADS}/{LM_KV_HEADS} N=KN={TRAIN_N} "
+            f"D{hd} bf16 causal, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}); on the path (profiler) {path_ms:.4f} ms a "
+            f"launch; SDPA backward (fwd+bwd minus fwd, dq/dk/dv together) {lib_ms:.4f} ms")
+        entries.append({
+            "name": f"flash_bwd_{which}",
+            "route": "cuda",
+            "source": "ku_torch/csrc/flash_bwd.cu",
+            "replaces": ("ku/pallas/flash_attention.py:503" if which == "dq"
+                         else "ku/pallas/flash_attention.py:581"),
+            "launches": launches[1 if which == "dq" else 2],
+            "max_abs_err": err,
+            "ms": ms,
+            "path_ms": path_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # One SDPA backward computes dq, dk and dv together.
+            "library_ms": lib_ms,
+        })
+    log(f"max abs diff kernel vs plain: dq {dq_err:.3e}, dk/dv {dkv_err:.3e}; f32 LM "
+        f"gradients through the kernels vs plain paths {grad_err:.3e} of each tensor's "
+        f"largest entry")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1212,19 +1586,22 @@ def main() -> int:
 
     # 2. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    modules = (cd_gibbs, fa, da)
-    built = _build.build_many([(m.SOURCE, m.NAME) for m in modules])
+    specs = [(cd_gibbs.SOURCE, cd_gibbs.NAME), (fa.SOURCE, fa.NAME),
+             (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME)]
+    built = _build.build_many(specs)
     log(f"build: {', '.join(lib.name for lib, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for m, (_, report) in zip(modules, built):
+    for (_, lib_name), (_, report) in zip(specs, built):
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {m.NAME}: {line.strip()}")
+                log(f"  {lib_name}: {line.strip()}")
     log(f"cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
         f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks")
 
     kernels = [rbm_path(dev, name)]
     kernels += serving_path(dev, name)
+    torch.cuda.empty_cache()  # the serving models are gone with serving_path
+    kernels += training_path(dev, name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,11 +4,13 @@ So far it holds the RBM / DBN trainer (:mod:`ku_torch.ebm`), whose CD-k run
 is one launch of a hand-written Hopper kernel
 (:mod:`ku_torch.kernels.cd_gibbs`); the attention, transformer and serving
 stack (:mod:`ku_torch.nn`: ``MultiHeadAttention`` with dense, paged and
-int8 KV caches, ``Transformer``, ``generate``, the ``ContinuousBatcher``
-over a dense cache or a page pool), whose prefill and per-token reads go
-through hand-written kernels for flash attention and flash decoding, dense
-and paged (:mod:`ku_torch.kernels.flash_attention`,
-:mod:`ku_torch.kernels.decode_attention`); the JSON config contract and
+int8 KV caches, ``Transformer``, the position encodings, ``generate``, the
+``ContinuousBatcher`` over a dense cache or a page pool), whose prefill and
+per-token reads go through hand-written kernels for flash attention and
+flash decoding, dense and paged (:mod:`ku_torch.kernels.flash_attention`,
+:mod:`ku_torch.kernels.decode_attention`), and whose ``use_flash``
+attention trains through hand-written flash backward kernels; ``ku``'s
+``Trainer`` (:mod:`ku_torch.engine_ext`); the JSON config contract and
 seed streams (:mod:`ku_torch.core`); and the JSON+npz weight files and
 state-dict conversion shared with ``ku`` (:mod:`ku_torch.utility`). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -30,6 +32,7 @@ from ku_torch.utility import (
 )
 
 from ku_torch import ebm as ebm
+from ku_torch import engine_ext as engine_ext
 from ku_torch import kernels as kernels
 from ku_torch import nn as nn
 

@@ -1,31 +1,53 @@
-"""Flash-attention forward as one CUDA kernel, with its plain version.
+"""Flash attention, forward and backward, as CUDA kernels with their plain
+versions, and the autograd function that joins them.
 
-Port of ``ku/pallas/flash_attention.py`` (forward part). The kernel,
-``ku_torch/csrc/flash_fwd.cu``, replaces
-``ku/pallas/flash_attention.py::_fwd_kernel``: one block per (batch·head,
-64-query tile) streams the live 64-key tiles through shared memory into an
-online softmax and writes the output and the f32 log-sum-exp. Its source
-note says what bounds it on an H100 and what the design does about that.
-The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are not
-ported yet, so nothing here is differentiable on the card.
+Port of ``ku/pallas/flash_attention.py``. Two sources:
 
-- :func:`flash_fwd_cuda` launches the kernel. It takes CUDA tensors only and
-  adds one to ``flash_fwd_cuda.launches`` per launch.
-- :func:`flash_fwd_torch` is the plain version: the same function in torch
-  ops, on tensors of any device.
-- :func:`flash_fwd` picks by the device of ``q``: the kernel for a CUDA
-  tensor, the plain version for a CPU tensor, never one for the other.
+- ``ku_torch/csrc/flash_fwd.cu`` replaces ``_fwd_kernel``: one block per
+  (batch·head, 64-query tile) streams the live 64-key tiles through shared
+  memory into an online softmax and writes the output and the f32
+  log-sum-exp.
+- ``ku_torch/csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``: dq from one block per (batch·head, 64-query tile),
+  dk and dv from one block per (batch·KV head, 64-key tile) that sums every
+  query head of its group, both recomputing the probabilities from the
+  saved log-sum-exp. Their source notes say what bounds them on an H100.
+
+Functions:
+
+- :func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda` and
+  :func:`flash_bwd_dkv_cuda` launch the kernels. They take CUDA tensors only
+  and add one to their ``launches`` count per launch.
+- :func:`flash_fwd_torch`, :func:`flash_bwd_dq_torch` and
+  :func:`flash_bwd_dkv_torch` are the plain versions: the same functions in
+  torch ops over the whole score matrix, on tensors of any device. The
+  backward ones are the backward formula written out, not autograd over
+  the forward.
+- :func:`flash_bwd_cuda` / :func:`flash_bwd_torch` take the forward's o and
+  lse and the output's gradient, form delta = rowsum(dO·O) in f32 (a torch
+  op, as ``ku`` forms it in XLA outside its kernels) and return
+  (dq, dk, dv).
+- :func:`flash_fwd` and :func:`flash_bwd` pick by the device of ``q``: the
+  kernels for a CUDA tensor, the plain versions for a CPU tensor, never one
+  for the other.
 - :func:`flash_attention` is what ``MultiHeadAttention(use_flash=True)``
-  calls: :func:`flash_fwd`'s output, refusing a call that needs gradients.
+  calls. When gradients are wanted it goes through :class:`FlashAttention`,
+  whose forward is :func:`flash_fwd` and whose backward is :func:`flash_bwd`
+  over the saved q, k, v, o and lse (``ku``'s ``jax.custom_vjp``); under
+  ``torch.no_grad()`` it is :func:`flash_fwd`'s output alone.
 
 Contract, as ``ku.pallas.flash_attention._fwd_pallas``: q (B, H, N, D),
 k/v (B, Hkv, KN, D)/(B, Hkv, KN, Dv) with H a multiple of Hkv (query head j
 reads KV head j // (H/Hkv)); ``causal`` and ``window`` (requires causal);
 ``segment_ids`` a (B, N) int array or a (seg_q, seg_k) pair; scalar or
 per-row (B,) ``q_offset``/``k_offset`` global positions for the masks;
-``logit_softcap``; any N and KN; Dv up to 128 on the card. Returns
-(o (B, H, N, Dv) in q's dtype, lse (B, H, N) f32). A query row that no key
-may attend (all masked) gets o = 0 and lse = -1e30.
+``logit_softcap``; any N and KN; on the card f32 or bf16, any strides, Dv up
+to 128 (and D up to 128 for the backward). The forward returns (o (B, H, N,
+Dv) in q's dtype, lse (B, H, N) f32); the backward (dq, dk, dv) in the
+dtypes of q, k, v. A query row that no key may attend (all masked) gets
+o = 0 and lse = -1e30, and its probabilities are 0 in the backward: dq = 0
+for it, and it adds nothing to dk or dv. The segment ids and offsets get no
+gradient.
 """
 
 from __future__ import annotations
@@ -36,11 +58,14 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ku_torch.kernels import _build
 
 NAME = "flash_fwd"
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd.cu"
+BWD_NAME = "flash_bwd"
+BWD_SOURCE = SOURCE.with_name("flash_bwd.cu")
 _MASKED = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +79,18 @@ def _library() -> ctypes.CDLL:
     lib.flash_fwd_launch.restype = i
     lib.flash_fwd_error_string.argtypes = [i]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.build(BWD_SOURCE, BWD_NAME)[0]))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
+        fn.argtypes = [p] * 12 + [i] * 7 + [p, f, f, i, i, i, p]
+        fn.restype = i
+    lib.flash_bwd_error_string.argtypes = [i]
+    lib.flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -104,6 +141,38 @@ def _check(q, k, v, causal, window):
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _check_cuda(name, *tensors):
+    """The kernels' common terms: CUDA tensors on one device, all f32 or
+    all bf16."""
+    device, dtype = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"{name} takes CUDA tensors on one device, "
+                             f"got {t.device} and {device}")
+        if t.dtype != dtype or dtype not in _DTYPE_CODES:
+            raise ValueError(f"{name} takes q, k, v (and dO) all float32 or all "
+                             f"bfloat16, got {[str(x.dtype) for x in tensors]}")
+
+
+def _wide(x):
+    """x in f32 for the sums (f64 stays f64, for gradcheck on the CPU)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _keep(b, n, kn, causal, window, segs, q_offset, k_offset, device):
+    """(B, N, KN) bool: which (query, key) pairs the masks leave live."""
+    q_pos = _offsets(q_offset, b, device).long()[:, None] + torch.arange(n, device=device)
+    k_pos = _offsets(k_offset, b, device).long()[:, None] + torch.arange(kn, device=device)
+    keep = torch.ones(b, n, kn, dtype=torch.bool, device=device)
+    if causal:
+        keep &= k_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        keep &= q_pos[:, :, None] - k_pos[:, None, :] < window
+    if segs is not None:
+        keep &= segs[0][:, :, None] == segs[1][:, None, :]
+    return keep
+
+
 def flash_fwd_cuda(q, k, v, *, softmax_scale: float = 1.0, causal: bool = False,
                    window: Optional[int] = None, segment_ids=None,
                    q_offset=None, k_offset=None,
@@ -114,14 +183,8 @@ def flash_fwd_cuda(q, k, v, *, softmax_scale: float = 1.0, causal: bool = False,
     strides. Launches on the current stream and does not synchronise.
     Raises on anything else and if the launch is refused."""
     _check(q, k, v, causal, window)
+    _check_cuda("flash_fwd_cuda", q, k, v)
     device = q.device
-    for t in (q, k, v):
-        if t.device != device or device.type != "cuda":
-            raise ValueError("flash_fwd_cuda takes CUDA tensors on one device, "
-                             f"got {t.device} and {device}")
-        if t.dtype != q.dtype or q.dtype not in _DTYPE_CODES:
-            raise ValueError("flash_fwd_cuda takes q, k, v all float32 or all "
-                             f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, n, d = q.shape
     hkv, kn, dv = k.shape[1], k.shape[2], v.shape[3]
     if dv > 128:
@@ -161,25 +224,17 @@ def flash_fwd_torch(q, k, v, *, softmax_scale: float = 1.0,
     hkv, kn = k.shape[1], k.shape[2]
     device = q.device
     segs = _norm_segments(segment_ids, b, n, kn, device)
-    q_pos = _offsets(q_offset, b, device).long()[:, None] + torch.arange(n, device=device)
-    k_pos = _offsets(k_offset, b, device).long()[:, None] + torch.arange(kn, device=device)
     kk = k.repeat_interleave(h // hkv, dim=1)
     vv = v.repeat_interleave(h // hkv, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * softmax_scale
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q), _wide(kk)) * softmax_scale
     if logit_softcap is not None:
         s = logit_softcap * torch.tanh(s / logit_softcap)
-    keep = torch.ones(b, n, kn, dtype=torch.bool, device=device)
-    if causal:
-        keep &= k_pos[:, None, :] <= q_pos[:, :, None]
-    if window is not None:
-        keep &= q_pos[:, :, None] - k_pos[:, None, :] < window
-    if segs is not None:
-        keep &= segs[0][:, :, None] == segs[1][:, None, :]
+    keep = _keep(b, n, kn, causal, window, segs, q_offset, k_offset, device)
     s = torch.where(keep[:, None], s, _MASKED)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1).clamp_min(1e-30)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vv.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", _wide(p.to(v.dtype)), _wide(vv))
     o = o / l[..., None]
     none = ~keep.any(dim=-1)[:, None]  # rows with no live key
     o = torch.where(none[..., None], 0.0, o)
@@ -196,15 +251,183 @@ def flash_fwd(q, k, v, **kw):
     raise ValueError(f"no flash attention for device {q.device}")
 
 
+# ---------------------------------------------------------------------------
+# Backward.
+# ---------------------------------------------------------------------------
+
+
+def _delta(o, do):
+    """rowsum(dO · O) in f32 from the forward's stored (rounded) o, as ku's
+    _bwd_pallas forms it (:699)."""
+    return (_wide(do) * _wide(o)).sum(dim=-1)
+
+
+def _bwd_launch(entry, outs, q, k, v, do, lse, delta, *, softmax_scale=1.0,
+                causal=False, window=None, segment_ids=None, q_offset=None,
+                k_offset=None, logit_softcap=None):
+    name = entry.__name__
+    _check(q, k, v, causal, window)
+    _check_cuda(name, q, k, v, do)
+    device = q.device
+    b, h, n, d = q.shape
+    hkv, kn, dv = k.shape[1], k.shape[2], v.shape[3]
+    if do.shape != (b, h, n, dv):
+        raise ValueError(f"dO shape {tuple(do.shape)} != {(b, h, n, dv)}")
+    if d > 128 or dv > 128:
+        raise ValueError(f"{name} takes heads up to 128 wide, got {d} and {dv}")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.shape != (b, h, n) or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"{what} must be ({b}, {h}, {n}) float32 on {device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    segs = _norm_segments(segment_ids, b, n, kn, device)
+    q_off, k_off = _offsets(q_offset, b, device), _offsets(k_offset, b, device)
+    strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(),
+                                       *do.stride())
+    lib = _bwd_library()
+    err = getattr(lib, name.replace("_cuda", "_launch"))(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr() if len(outs) > 1 else None,
+        q_off.data_ptr(), k_off.data_ptr(),
+        segs[0].data_ptr() if segs else None,
+        segs[1].data_ptr() if segs else None,
+        b, h, hkv, n, kn, d, dv, strides, float(softmax_scale),
+        float(logit_softcap or 0.0), int(causal), int(window or 0),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.flash_bwd_error_string(err).decode()} ({err})")
+    entry.launches += 1
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
+    """dq (B, H, N, D) in q's dtype as one launch of the dq kernel, from the
+    forward's lse and ``delta`` = rowsum(dO·O) (both (B, H, N) f32).
+
+    Takes CUDA tensors on one device, q/k/v/dO all f32 or all bf16 with any
+    strides, the forward's keyword arguments. Launches on the current stream
+    and does not synchronise. Raises on anything else and if the launch is
+    refused."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch(flash_bwd_dq_cuda, (dq,), q, k, v, do, lse, delta, **kw)
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw):
+    """(dk, dv) in the dtypes of k and v as one launch of the dk/dv kernel,
+    each summed over the query heads of its KV head's group; the terms of
+    :func:`flash_bwd_dq_cuda`."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch(flash_bwd_dkv_cuda, (dk, dv), q, k, v, do, lse, delta, **kw)
+    return dk, dv
+
+
+flash_bwd_dq_cuda.launches = 0
+flash_bwd_dkv_cuda.launches = 0
+
+
+def _bwd_slabs(q, k, v, do, lse, delta, *, softmax_scale=1.0, causal=False,
+               window=None, segment_ids=None, q_offset=None, k_offset=None,
+               logit_softcap=None):
+    """The plain backward's (B, H, N, KN) slabs: (p, ds) in f32, p = 0 on
+    masked pairs, and k repeated to H heads."""
+    _check(q, k, v, causal, window)
+    b, h, n, _ = q.shape
+    hkv, kn = k.shape[1], k.shape[2]
+    device = q.device
+    segs = _norm_segments(segment_ids, b, n, kn, device)
+    kk = k.repeat_interleave(h // hkv, dim=1)
+    vv = v.repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q), _wide(kk)) * softmax_scale
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+        dcap = 1.0 - (s / logit_softcap) ** 2  # from the capped value
+    keep = _keep(b, n, kn, causal, window, segs, q_offset, k_offset, device)
+    # Masked pairs get p = 0 explicitly: a row with no live key has
+    # lse = -1e30, and exp(s - lse) there would not vanish.
+    p = torch.exp(torch.where(keep[:, None], s - lse[..., None], -torch.inf))
+    dp = torch.einsum("bhqd,bhkd->bhqk", _wide(do), _wide(vv))
+    ds = p * (dp - delta[..., None])
+    if logit_softcap is not None:
+        ds = ds * dcap
+    return p, ds, kk
+
+
+def flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw):
+    """The plain version of :func:`flash_bwd_dq_cuda`, on any device: ds
+    rounded to k's dtype, dq = scale · ds·K summed in f32."""
+    _, ds, kk = _bwd_slabs(q, k, v, do, lse, delta, **kw)
+    dq = torch.einsum("bhqk,bhkd->bhqd", _wide(ds.to(k.dtype)), _wide(kk))
+    return (kw.get("softmax_scale", 1.0) * dq).to(q.dtype)
+
+
+def flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw):
+    """The plain version of :func:`flash_bwd_dkv_cuda`, on any device: p
+    rounded to dO's dtype, dv = pᵀ·dO; ds rounded to q's dtype, dk = scale ·
+    dsᵀ·Q; each summed in f32 over the query heads of a group and rounded
+    once."""
+    p, ds, _ = _bwd_slabs(q, k, v, do, lse, delta, **kw)
+    b, h, _, d = q.shape
+    hkv, kn, dv = k.shape[1], k.shape[2], v.shape[3]
+    dv_h = torch.einsum("bhqk,bhqd->bhkd", _wide(p.to(do.dtype)), _wide(do))
+    dk_h = torch.einsum("bhqk,bhqd->bhkd", _wide(ds.to(q.dtype)), _wide(q))
+    dk_h = kw.get("softmax_scale", 1.0) * dk_h
+    group = h // hkv
+    return (dk_h.view(b, hkv, group, kn, d).sum(2).to(k.dtype),
+            dv_h.view(b, hkv, group, kn, dv).sum(2).to(v.dtype))
+
+
+def flash_bwd_cuda(q, k, v, o, lse, do, **kw):
+    """(dq, dk, dv) through the two backward kernels, from the forward's
+    (o, lse) and the output's gradient ``do`` (any strides)."""
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    return (dq,) + flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+
+
+def flash_bwd_torch(q, k, v, o, lse, do, **kw):
+    """The plain version of :func:`flash_bwd_cuda`, on any device."""
+    delta = _delta(o, do)
+    dq = flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    return (dq,) + flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+
+
+def flash_bwd(q, k, v, o, lse, do, **kw):
+    """The kernels for CUDA tensors, the plain versions for CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    if q.device.type == "cpu":
+        return flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash attention of (q, k, v), differentiable in q, k and v:
+    forward :func:`flash_fwd`, backward :func:`flash_bwd` from the saved q,
+    k, v, o and lse. ``kw`` holds the forward's keyword arguments (masks,
+    offsets, segment ids), which get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        o, lse = flash_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, **kw):
-    """Flash attention's output (:func:`flash_fwd`) for the forward-only
-    paths: serving, and ``MultiHeadAttention(use_flash=True)`` outside
-    training. Raises ``NotImplementedError`` when gradients are wanted: the
-    backward kernels come with the training slice of the port."""
+    """Flash attention's output (B, H, N, Dv): through :class:`FlashAttention`
+    when gradients are wanted for q, k or v, else :func:`flash_fwd`'s output
+    alone (serving, and anything under ``torch.no_grad()``)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "gradients through use_flash attention need the flash backward "
-            "kernels (ku/pallas/flash_attention.py::_bwd_dq_kernel, "
-            "_bwd_dkv_kernel), which come with the training slice of the "
-            "port; run under torch.no_grad() or use use_flash=False")
+        return FlashAttention.apply(q, k, v, kw)
     return flash_fwd(q, k, v, **kw)[0]

@@ -1,5 +1,5 @@
-"""Attention, transformer blocks and serving (port of the serving part of
-``ku.nn``): only what is ported is exported."""
+"""Attention, transformer blocks, position encodings and serving (port of
+that part of ``ku.nn``): only what is ported is exported."""
 
 from ku_torch.nn.attention import (
     MultiHeadAttention,
@@ -19,3 +19,7 @@ from ku_torch.nn.decoding import (
     mask_after_eos,
 )
 from ku_torch.nn.serving import ContinuousBatcher
+from ku_torch.nn.position_encoding import (
+    OrdinalPositionEncoding,
+    PeriodicPositionEncoding,
+)

@@ -37,10 +37,12 @@ last slot, one past a table's end (MP·pg) is dropped, as ``ku`` documents
 it (``ku``'s per-token write for pools above 8 MB instead lands such a
 position in pool page 0).
 
-The three kernels on this path are chosen by the tensor's device, never by
+The kernels on this path are chosen by the tensor's device, never by
 size: ``use_flash`` routes prefill (over the gathered, dequantised view for
 a pool or an int8 cache) and the non-decode scaled path through
-:func:`ku_torch.kernels.flash_attention.flash_attention`, and the per-token
+:func:`ku_torch.kernels.flash_attention.flash_attention`, which is
+differentiable (the flash backward kernels) when gradients are wanted, as
+in training, and forward-only under ``torch.no_grad()``; the per-token
 read goes through :func:`ku_torch.kernels.decode_attention.decode_attention`
 or, for a pool, ``decode_attention_paged`` (int8 caches with their scales)
 unless ``flash_decode=False`` asks for the plain reads: ``ku``'s masked
@@ -49,7 +51,7 @@ kernel (or raises); on a CPU tensor each takes its plain version.
 
 Not ported yet, and raising ``NotImplementedError`` with the slice that
 brings them: the ring cache (``window`` with ``decode=True``),
-``quant_weights``, ``block_mask``, and gradients through ``use_flash``.
+``quant_weights`` and ``block_mask``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """ku_torch's kernels on the card against their plain versions: the CD
-kernel here, the serving kernels (flash forward, flash decoding) below.
+kernel here, the serving kernels (flash forward, flash decoding) and the
+training ones (the flash backward, a Trainer step) below.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -433,3 +434,147 @@ def test_reallocated_page_is_never_written_by_its_former_row_on_the_card(device)
     alone = generate(_tiny_lm(device, use_flash=True, kv_page_size=4),
                      torch.from_numpy(b).to(device)[None], 4, **io)
     np.testing.assert_array_equal(out[2], alone[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The flash backward kernels (dq, dk/dv) against their plain versions, on the
+# same o, lse and delta; and a Trainer step through all three flash kernels.
+# f32 rtol/atol 1e-4 (sums in another order); bf16 rtol 2e-2 and atol 1e-2
+# of each gradient's largest entry (p and ds are rounded to bf16 before
+# their products, and an f32 ulp in a score can move one of those
+# roundings, 2^-8 of the value).
+# ---------------------------------------------------------------------------
+
+from ku_torch.engine_ext import Trainer  # noqa: E402
+
+BWD_CASES = {
+    "gqa_window_softcap_rows": dict(b=2, h=4, hkv=2, n=37, kn=53, d=64, window=7,
+                                    softcap=1.5, q_offset=[16, 3]),
+    "mqa_segments_scalar": dict(b=2, h=4, hkv=1, n=70, kn=70, d=32, segments=True,
+                                q_offset=3, k_offset=1),
+    "noncausal_long_keys": dict(b=1, h=3, hkv=3, n=5, kn=130, d=128, causal=False),
+    "gqa_d128_strided_do": dict(b=2, h=8, hkv=2, n=130, kn=130, d=128,
+                                strided_do=True),
+    "dead_rows": dict(b=2, h=2, hkv=1, n=70, kn=70, d=32, k_offset=10,
+                      q_offset=[0, -80]),
+    "value_heads_narrower": dict(b=2, h=4, hkv=2, n=50, kn=61, d=128, dv=64),
+    "value_heads_wider": dict(b=1, h=2, hkv=1, n=65, kn=65, d=32, dv=96, window=20),
+}
+
+
+def _bwd_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=1e-2 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernels_match_plain(device, case, dtype):
+    c = dict(BWD_CASES[case])
+    b, h, hkv, n, kn, d = (c.pop(k) for k in ("b", "h", "hkv", "n", "kn", "d"))
+    dv = c.pop("dv", d)
+    g = torch.Generator(device=device).manual_seed(3)
+    q = torch.randn(b, h, n, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, hkv, kn, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, hkv, kn, dv, generator=g, device=device).to(dtype)
+    if c.pop("strided_do", False):
+        do = torch.randn(b, n, h, dv, generator=g, device=device).to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(b, h, n, dv, generator=g, device=device).to(dtype)
+    seg = None
+    if c.pop("segments", False):
+        seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=device),
+                         dim=1).values.to(torch.int32)
+    offsets = {key: torch.tensor(c.pop(key), dtype=torch.int32, device=device)
+               if isinstance(c.get(key), list) else c.pop(key)
+               for key in ("q_offset", "k_offset") if key in c}
+    kw = dict(softmax_scale=0.1, causal=c.pop("causal", True),
+              window=c.pop("window", None), logit_softcap=c.pop("softcap", None),
+              segment_ids=seg, **offsets)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    before = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    dq, dk, dv_ = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv_.shape == v.shape
+    _bwd_close(dq, fa.flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw), dtype)
+    dk_p, dv_p = fa.flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+    _bwd_close(dk, dk_p, dtype)
+    _bwd_close(dv_, dv_p, dtype)
+    dead = lse == -1e30
+    assert torch.all(dq[dead] == 0)
+    if case == "dead_rows":
+        assert dead[1].all() and torch.all(dk[1] == 0) and torch.all(dv_[1] == 0)
+
+
+def test_flash_bwd_wrappers_reject_what_the_kernels_do_not_take(device):
+    q = torch.zeros(1, 2, 4, 16, device=device)
+    lse = torch.zeros(1, 2, 4, device=device)
+    with pytest.raises(ValueError, match="float32 or all"):
+        fa.flash_bwd_dq_cuda(q, q, q, q.bfloat16(), lse, lse)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_bwd_dkv_cuda(q, q, q, q.cpu(), lse, lse)
+    with pytest.raises(ValueError, match="float32 on"):
+        fa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse.cpu())
+    with pytest.raises(ValueError, match="float32 on"):
+        fa.flash_bwd_dq_cuda(q, q, q, q, lse, lse.double())
+    wide = torch.zeros(1, 2, 4, 160, device=device)
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_bwd_dkv_cuda(wide, wide, wide, wide, lse, lse)
+
+
+class _TiedLM(torch.nn.Module):
+    """Two Transformer blocks between a tied embedding and readout."""
+
+    def __init__(self, device, use_flash):
+        super().__init__()
+        gen = torch.Generator(device=device).manual_seed(0)
+        self.embed = torch.nn.Embedding(50, 32, device=device)
+        with torch.no_grad():
+            self.embed.weight.copy_(torch.randn(50, 32, generator=gen, device=device))
+        self.blocks = torch.nn.ModuleList(
+            Transformer(4, 32, causal=True, rope=True, num_kv_head=2,
+                        use_flash=use_flash, device=device, generator=gen)
+            for _ in range(2))
+
+    def forward(self, ids, deterministic=True):
+        x = self.embed(ids)
+        for block in self.blocks:
+            x = block([x], deterministic=deterministic)
+        return x @ self.embed.weight.T
+
+
+def _xent(y_true, logits):
+    return torch.nn.functional.cross_entropy(logits.transpose(1, 2), y_true,
+                                             reduction="none").mean(-1)
+
+
+def test_train_step_on_the_card_goes_through_the_flash_kernels(device):
+    """Trainer.train_step on a small f32 LM launches the forward, dq and
+    dk/dv kernels once per attention sublayer a step, and its first step's
+    loss and gradients agree with those of the plain paths (use_flash=False)
+    to 1e-4."""
+    seqs = torch.randint(0, 50, (3, 70), device=device)
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    fast, plain = _TiedLM(device, True), _TiedLM(device, False)
+    plain.load_state_dict(fast.state_dict())
+    counts = lambda: (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,  # noqa: E731
+                      fa.flash_bwd_dkv_cuda.launches, da.decode_attention_cuda.launches)
+    before = counts()
+    tr = Trainer(fast, _xent)
+    loss = tr.train_step(x, y)["loss"]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [4, 4, 4, 0]
+    loss_p = Trainer(plain, _xent).train_step(x, y)["loss"]
+    assert [a - b for a, b in zip(counts(), before)] == [4, 4, 4, 0]
+    assert abs(loss - loss_p) <= 1e-4 * abs(loss_p)
+    for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-4, msg=name)
+    assert torch.isfinite(torch.tensor(tr.train_step(x, y)["loss"]))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [8, 8, 8, 0]

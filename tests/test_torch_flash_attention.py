@@ -93,9 +93,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(rng):
         fa.flash_fwd(q, q, q, segment_ids=torch.zeros(1, 2, dtype=torch.int32))
 
 
-def test_flash_attention_refuses_gradients():
-    q = torch.zeros(1, 2, 3, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward kernels"):
-        fa.flash_attention(q, q, q)
+def test_flash_attention_refuses_gradients(rng):
+    """Named for what it checked before the backward was ported: now that
+    flash_attention is differentiable on the CPU (through the backward's
+    plain version, the kernels not launched), and forward-only under
+    torch.no_grad()."""
+    q = torch.from_numpy(rng.normal(size=(1, 2, 3, 8)).astype(np.float32))
+    q.requires_grad_()
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+              fa.flash_bwd_dkv_cuda.launches)
+    out = fa.flash_attention(q, q, q, causal=True)
+    assert out.grad_fn is not None and out.shape == (1, 2, 3, 8)
+    (grad,) = torch.autograd.grad(out.sum(), q)
+    assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches) == before
     with torch.no_grad():
-        assert fa.flash_attention(q, q, q).shape == (1, 2, 3, 8)
+        plain = fa.flash_attention(q, q, q, causal=True)
+    assert plain.grad_fn is None
+    torch.testing.assert_close(plain, out.detach(), rtol=0, atol=0)
