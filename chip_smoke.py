@@ -8,7 +8,7 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: CUDA must be present; print the card's name and power limit.
-2. Build: compile the four kernel sources of ku_torch/csrc with nvcc, one
+2. Build: compile the five kernel sources of ku_torch/csrc with nvcc, one
    process per source, all started together; print their register and
    spill lines.
 3. CD kernel against its plain version on the card, same inputs:
@@ -128,8 +128,41 @@ Phases (any failure raises and the script exits non-zero):
    through scaled_dot_product_attention with the same causal mask, minus
    that call's forward (it computes dq, dk and dv together). Each timed
    call runs once untimed first.
+17. (After the training model is freed.) The block-sparse kernels
+   (forward, dq, dk/dv) against their plain versions on the card, the
+   backward on the forward kernel's o, lse and delta: f32 rtol/atol 1e-4;
+   bf16 at phase 6's limits for the forward and phase 14's for the
+   backward. ku's four pattern primitives (tests/test_sparse_attention.py:
+   88-94) at blocks of 16, a causal block pattern, the non-causal cross
+   pattern whose unattended key blocks hold NaN (outputs finite, their
+   dk/dv exactly 0), rows with no live key (o, dq 0), blocks of 64, of
+   128 x 64, and the LM's 512 x 512 mask; G 1 and 4, D 64 and 128, Dv != D
+   both ways, dO through a transposed view; in bf16 also ku's sparse gate
+   (bench.py:217-243: B 1, H 4, N 65,536, D 64, window 4,096 + 128 sinks).
+18. The same LM trained under a block mask through Trainer: every block
+   called with the mask, which routes both attention sublayers through
+   the sparse kernels. f32 (TF32 off), B 1 x 2,048, blocks of 128, window
+   512 + 64 sinks: one step's loss and every gradient through the kernels
+   against the same step through the plain versions (routed here only),
+   rtol 1e-3 and atol 1e-3 of each tensor's largest entry; then `fit`, 2
+   epochs over 8 sequences at B 1, whose loss must be finite and fall.
+   bf16, B 1 x 8,192 under the main mask (512 x 512 blocks, window 2,048
+   + 128 sinks: 81 of 256 blocks): 2 warm-up `train_step`s and 4 timed
+   ones, losses finite, each step exactly 32 launches of each sparse
+   kernel and none of the flash or decode kernels; `predict` launches the
+   sparse forward only. Peak memory of each part.
+19. Sparse timing: train tokens/s from the median of the timed steps (CUDA
+   events); a torch.profiler window over one bf16 step (each sparse
+   kernel's `path_ms`); each sparse kernel alone at the LM's shape, cold
+   in L2, against its plain version and its bound (4·D operations a kept
+   pair for the forward, 6·D for dq, 8·D for dk/dv, from the mask's exact
+   kept-pair count, at the bf16 tensor-core peak, or the bytes at the
+   memory rate) and `library_ms`: flex_attention, compiled, over a block
+   mask from the same mask_mod (forward; forward + backward minus
+   forward); then ku's sparse gate: the sparse kernels against the dense
+   causal flash forward at 64k (ku's sparse_vs_causal_speedup).
 
-The last lines are the `kernels` JSON line (6 kernels), the card's name
+The last lines are the `kernels` JSON line (9 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -152,10 +185,13 @@ from ku_torch.engine_ext import Trainer, adam
 from ku_torch.kernels import _build, cd_gibbs
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
+from ku_torch.kernels import sparse_attention as sa
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
 
 DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
 BWD_KERNELS = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+SPARSE_KERNELS = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+SPARSE_DISPATCH = (sa.sparse_fwd, sa.sparse_bwd)
 
 N, V_DIM, H_DIM, BATCH, EPOCHS, K = 60032, 784, 128, 128, 3, 1
 LR = 1e-3
@@ -180,6 +216,15 @@ CBP_PAGES, CBP_PROMPT_LEN, CBP_PREFIX, CBP_MIN, CBP_MAX = 24, 256, 300, 64, 704
 TRAIN_N, TRAIN_PERIOD, TRAIN_SEQS, TRAIN_B, TRAIN_TIMED = 1024, 64, 32, 8, 8
 F32_GRAD_B, F32_FIT_B, TRAIN_LR = 2, 4, 3e-5
 FLUSH_BYTES = 256 << 20  # written before each cold call: past the 50 MB L2
+# The block-sparse phases: the same LM trained at SP_N tokens a sequence
+# (B 1) under StreamingLLM's pattern, a window of SP_WINDOW keys plus
+# SP_SINKS sinks, in ku's default 512 x 512 blocks; SP_TIMED timed bf16
+# steps. The f32 check runs a smaller pattern of the same kind at SP32_N
+# tokens, and `fit` 2 epochs over SP32_SEQS sequences at B 1. ku's sparse
+# gate (bench.py:217-243): B 1, H 4, N 65,536, D 64, bf16, window 4,096.
+SP_N, SP_BLOCK, SP_WINDOW, SP_SINKS, SP_TIMED = 8192, 512, 2048, 128, 4
+SP32_N, SP32_BLOCK, SP32_WINDOW, SP32_SINKS, SP32_SEQS = 2048, 128, 512, 64, 8
+GATE_H, GATE_N, GATE_D, GATE_WINDOW = 4, 65536, 64, 4096
 
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
 # and bf16 on the tensor cores in FLOP/s, and memory bandwidth in bytes/s,
@@ -526,10 +571,12 @@ def serving_kernels_vs_plain(dev):
 
 class LM(torch.nn.Module):
     """The serving LM: LM_BLOCKS Transformer blocks named as ku names them
-    (``block{i}``), following the cache protocol."""
+    (``block{i}``), following the cache protocol; ``block_mask``, when set,
+    goes to every block (the block-sparse phases)."""
 
     def __init__(self, generator):
         super().__init__()
+        self.block_mask = None
         for i in range(LM_BLOCKS):
             self.add_module(f"block{i}", Transformer(
                 LM_HEADS, LM_D, 0.0, causal=True, rope=True, num_kv_head=LM_KV_HEADS,
@@ -542,6 +589,7 @@ class LM(torch.nn.Module):
         for i in range(LM_BLOCKS):
             out = getattr(self, f"block{i}")([x], deterministic=deterministic,
                                              decode=decode,
+                                             block_mask=self.block_mask,
                                              prompt_lengths=prompt_lengths,
                                              cache=cache, scope=f"block{i}")
             x, cache = out if decode else (out, cache)
@@ -549,7 +597,7 @@ class LM(torch.nn.Module):
 
 
 def zero_counts():
-    for k in (fa.flash_fwd_cuda,) + BWD_KERNELS + DECODE_KERNELS:
+    for k in (fa.flash_fwd_cuda,) + BWD_KERNELS + DECODE_KERNELS + SPARSE_KERNELS:
         k.launches = 0
 
 
@@ -1351,15 +1399,19 @@ def next_token_xent(y_true, logits):
 
 
 def train_counts():
-    """(flash fwd, dq, dk/dv, dense decode, paged decode) launches."""
+    """(flash fwd, dq, dk/dv, dense decode, paged decode, sparse fwd, dq,
+    dk/dv) launches."""
     return (fa.flash_fwd_cuda.launches,) + tuple(
-        k.launches for k in BWD_KERNELS + DECODE_KERNELS)
+        k.launches for k in BWD_KERNELS + DECODE_KERNELS + SPARSE_KERNELS)
 
 
-def check_step_launches(steps, what):
-    want = (2 * LM_BLOCKS * steps,) * 3 + (0, 0)
-    check(train_counts() == want, f"{what}: launches (fwd, dq, dkv, dense, paged) "
-          f"{train_counts()}, expected {want}")
+def check_step_launches(steps, what, sparse=False):
+    """Each step launched the three flash kernels (or, under a block mask,
+    the three sparse ones) once per attention sublayer, and nothing else."""
+    per = (2 * LM_BLOCKS * steps,) * 3
+    want = ((0,) * 3 + (0, 0) + per) if sparse else (per + (0, 0) + (0,) * 3)
+    check(train_counts() == want, f"{what}: launches (fwd, dq, dkv, dense, paged, "
+          f"sparse fwd, dq, dkv) {train_counts()}, expected {want}")
 
 
 def periodic_sequences(rng, rows, width):
@@ -1374,15 +1426,17 @@ def gib(nbytes) -> str:
     return f"{nbytes / 2 ** 30:.2f} GiB"
 
 
-def f32_training(lm, seqs):
-    """Phase 15, float32 (TF32 off): one step's gradients through the kernels
-    against the plain paths, then `fit`. Returns the largest gradient
-    difference relative to its tensor's largest entry."""
-    x, y = seqs[:F32_GRAD_B, :-1], seqs[:F32_GRAD_B, 1:]
+def f32_training(lm, seqs, grad_b, fit_b, route, what, sparse=False):
+    """Phases 15 and 18, float32 (TF32 off): one step's loss and every
+    gradient through the kernels against the same step through the plain
+    paths (`route(kernels)` sends the model one way or the other), then
+    `fit`, 2 epochs over `seqs` at batch `fit_b`. Returns the largest
+    gradient difference relative to its tensor's largest entry."""
+    x, y = seqs[:grad_b, :-1], seqs[:grad_b, 1:]
     initial = copy.deepcopy(lm.state_dict())
     runs = {}
     for kernels in (True, False):
-        set_attention_paths(lm, kernels)
+        route(kernels)
         lm.load_state_dict(initial)
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1390,16 +1444,16 @@ def f32_training(lm, seqs):
         loss = tr.train_step(x, y)["loss"]
         torch.cuda.synchronize()
         if kernels:
-            check_step_launches(1, "f32 step through the kernels")
+            check_step_launches(1, f"{what}: f32 step through the kernels", sparse)
         else:
-            check(train_counts() == (0,) * 5, f"plain step launched {train_counts()}")
+            check(train_counts() == (0,) * 8, f"{what}: plain step launched {train_counts()}")
         runs[kernels] = (loss, {n: p.grad.clone() for n, p in lm.named_parameters()},
                          torch.cuda.max_memory_allocated())
         del tr
-    set_attention_paths(lm, True)
+    route(True)
     (loss_k, grads_k, peak_k), (loss_p, grads_p, peak_p) = runs[True], runs[False]
     check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p),
-          f"f32 step loss through the kernels {loss_k} against plain {loss_p}")
+          f"{what}: f32 step loss through the kernels {loss_k} against plain {loss_p}")
     worst, worst_name = 0.0, ""
     for n, gp in grads_p.items():
         gk, top = grads_k[n], float(gp.abs().max())
@@ -1408,29 +1462,45 @@ def f32_training(lm, seqs):
         rel = float((gk - gp).abs().max()) / max(top, 1e-30)
         if rel > worst:
             worst, worst_name = rel, n
-    log(f"f32 LM train step, B {F32_GRAD_B} x {TRAIN_N} tokens: loss {loss_k:.6f} through "
-        f"the kernels, {loss_p:.6f} through the plain paths; {len(grads_k)} gradients "
-        f"agree, largest difference {worst:.3e} of its tensor's largest entry "
-        f"({worst_name}); peak memory {gib(peak_k)} (kernels), {gib(peak_p)} (plain)")
+    log(f"f32 LM train step ({what}), B {grad_b} x {seqs.shape[1] - 1} tokens: loss "
+        f"{loss_k:.6f} through the kernels, {loss_p:.6f} through the plain paths; "
+        f"{len(grads_k)} gradients agree, largest difference {worst:.3e} of its tensor's "
+        f"largest entry ({worst_name}); peak memory {gib(peak_k)} (kernels), "
+        f"{gib(peak_p)} (plain)")
     del runs, grads_k, grads_p
 
-    # fit: 2 epochs over 32 sequences, from the same initial weights.
+    # fit: 2 epochs, from the same initial weights.
     lm.load_state_dict(initial)
     del initial
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
     t0 = time.perf_counter()
-    history = tr.fit(seqs[:, :-1], seqs[:, 1:], batch_size=F32_FIT_B, epochs=2, verbose=0)
+    history = tr.fit(seqs[:, :-1], seqs[:, 1:], batch_size=fit_b, epochs=2, verbose=0)
     t_fit = time.perf_counter() - t0
-    steps = 2 * (seqs.shape[0] // F32_FIT_B)
-    check_step_launches(steps, "f32 fit")
+    steps = 2 * (seqs.shape[0] // fit_b)
+    check_step_launches(steps, f"{what}: f32 fit", sparse)
     check(all(math.isfinite(h) for h in history) and history[1] < history[0],
-          f"f32 fit loss did not fall: {history}")
-    log(f"f32 LM fit, {seqs.shape[0]} sequences of {TRAIN_N}, batch {F32_FIT_B}, 2 epochs "
-        f"({steps} steps, {t_fit:.2f} s): epoch losses {history}; launches (fwd, dq, dkv) "
-        f"{train_counts()[:3]}; peak memory {gib(torch.cuda.max_memory_allocated())}")
+          f"{what}: f32 fit loss did not fall: {history}")
+    log(f"f32 LM fit ({what}), {seqs.shape[0]} sequences of {seqs.shape[1] - 1}, batch "
+        f"{fit_b}, 2 epochs ({steps} steps, {t_fit:.2f} s): epoch losses {history}; "
+        f"launches (fwd, dq, dkv) {train_counts()[5:] if sparse else train_counts()[:3]}; "
+        f"peak memory {gib(torch.cuda.max_memory_allocated())}")
     return worst
+
+
+def timed_steps(tr, x, y, timed):
+    """2 warm-up train_steps, then `timed` ones each between two CUDA
+    events; returns (every loss, the timed steps' ms sorted)."""
+    losses = [tr.train_step(x, y)["loss"] for _ in range(2)]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(timed)]
+    for start, end in events:
+        start.record()
+        losses.append(tr.train_step(x, y)["loss"])
+        end.record()
+    torch.cuda.synchronize()
+    return losses, sorted(s.elapsed_time(e) for s, e in events)
 
 
 def bwd_bound(which, b, h, hkv, n, d, itemsize, peak_bf16, peak_bw):
@@ -1459,7 +1529,9 @@ def training_path(dev, name) -> list:
     log(f"training LM: {sum(p.numel() for p in lm.parameters()) / 1e9:.3f}B parameters "
         f"({LM_BLOCKS} blocks, tied {LM_VOCAB} x {LM_D} table), {TRAIN_SEQS} sequences of "
         f"{TRAIN_N + 1} tokens (a {TRAIN_PERIOD}-token motif repeated), Adam lr {TRAIN_LR}")
-    grad_err = f32_training(lm, seqs)
+    grad_err = f32_training(lm, seqs, F32_GRAD_B, F32_FIT_B,
+                            lambda kernels: set_attention_paths(lm, kernels),
+                            "use_flash=False as the plain path")
 
     lm = lm.to(torch.bfloat16)
     torch.cuda.empty_cache()
@@ -1467,15 +1539,7 @@ def training_path(dev, name) -> list:
     tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    losses = [tr.train_step(x, y)["loss"] for _ in range(2)]
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(TRAIN_TIMED)]
-    for start, end in events:
-        start.record()
-        losses.append(tr.train_step(x, y)["loss"])
-        end.record()
-    torch.cuda.synchronize()
-    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses, step_ms = timed_steps(tr, x, y, TRAIN_TIMED)
     launches = train_counts()
     check_step_launches(2 + TRAIN_TIMED, "bf16 train_step")
     check(all(math.isfinite(v) for v in losses), f"bf16 losses {losses}")
@@ -1502,13 +1566,15 @@ def training_path(dev, name) -> list:
     tr.train_step(x, y)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    for start, end in events[:4]:
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(4)]
+    for start, end in events:
         start.record()
         tr.train_step(x, y)
         end.record()
     torch.cuda.synchronize()
-    check(train_counts() == (0,) * 5, f"plain steps launched {train_counts()}")
-    plain_step_ms = float(np.median([s.elapsed_time(e) for s, e in events[:4]]))
+    check(train_counts() == (0,) * 8, f"plain steps launched {train_counts()}")
+    plain_step_ms = float(np.median([s.elapsed_time(e) for s, e in events]))
     log(f"train through the plain paths: step {plain_step_ms:.3f} ms median of 4, "
         f"{TRAIN_B * TRAIN_N / (plain_step_ms / 1e3):.1f} tokens/s, "
         f"{median_ms / plain_step_ms:.3f} x the kernels' step time; peak memory "
@@ -1572,6 +1638,308 @@ def training_path(dev, name) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The block-sparse training path (phases 17-19).
+# ---------------------------------------------------------------------------
+
+
+def main_mask():
+    """The main path's mask: causal, a window of SP_WINDOW keys plus SP_SINKS
+    sinks, over SP_N tokens in SP_BLOCK-square blocks."""
+    return sa.make_block_mask(SP_N, block_q=SP_BLOCK, block_k=SP_BLOCK, causal=True,
+                              window=SP_WINDOW, global_prefix=SP_SINKS)
+
+
+def gate_mask():
+    """ku's sparse gate's mask (bench.py:217-243)."""
+    return sa.make_block_mask(GATE_N, block_q=512, block_k=512, causal=True,
+                              window=GATE_WINDOW, global_prefix=SP_SINKS)
+
+
+def sparse_case(dev, dtype, b, h, hkv, d, dv, mask, *, poison=False, strided_do=False,
+                amplitude=1.0, seed=0):
+    """The three sparse kernels against their plain versions on the same
+    inputs (the backward on the forward kernel's o, lse and delta). With
+    `poison`, the K and V rows of the key blocks no query attends hold NaN:
+    every output must stay finite and their dk, dv be exactly 0. Returns the
+    largest abs difference of (o, dq, dk/dv)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, mask.n, d, generator=g, device=dev) * amplitude).to(dtype)
+    k = (torch.randn(b, hkv, mask.kn, d, generator=g, device=dev) * amplitude).to(dtype)
+    v = (torch.randn(b, hkv, mask.kn, dv, generator=g, device=dev) * amplitude).to(dtype)
+    unattended = torch.from_numpy(mask.qcnt == 0).to(dev).repeat_interleave(mask.block_k)
+    if poison:
+        check(bool(unattended.any()), "no unattended key block to poison")
+        k[:, :, unattended] = float("nan")
+        v[:, :, unattended] = float("nan")
+    if strided_do:  # as autograd hands it over, through the heads' transpose
+        do = torch.randn(b, mask.n, h, dv, generator=g, device=dev).to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(b, h, mask.n, dv, generator=g, device=dev).to(dtype)
+    scale = 1.0 / math.sqrt(h * d)
+    o, lse = sa.sparse_fwd_cuda(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), "sparse o not finite")
+    o_p, lse_p = sa.sparse_fwd_torch(q, k, v, mask, scale)
+    torch.testing.assert_close(o, o_p, **TOLS[dtype], msg="sparse o")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4, msg="sparse lse")
+    delta = fa._delta(o, do)
+    dq = sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, mask, scale)
+    dk, dv_ = sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, mask, scale)
+    torch.cuda.synchronize()
+    dq_p = sa.sparse_bwd_dq_torch(q, k, v, do, lse, delta, mask, scale)
+    dk_p, dv_p = sa.sparse_bwd_dkv_torch(q, k, v, do, lse, delta, mask, scale)
+    for what, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv_, dv_p)):
+        check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"sparse {what} not finite")
+        bwd_close(got, want, dtype, f"sparse {what}")
+    if poison:
+        check(bool((dk[:, :, unattended] == 0).all() and (dv_[:, :, unattended] == 0).all()),
+              "an unattended key block has dk or dv != 0")
+    dead = lse == fa._MASKED  # rows with no live key
+    check(bool((o[dead] == 0).all() and (dq[dead] == 0).all()), "a dead row has o or dq != 0")
+    diffs = (_max_diff(o, o_p), _max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv_, dv_p)))
+    log(f"  sparse {str(dtype)[6:]} B{b} H{h}/{hkv} N{mask.n} KN{mask.kn} D{d} Dv{dv} blocks "
+        f"{mask.block_q}x{mask.block_k} causal {mask.causal} window {mask.window} sinks "
+        f"{mask.global_prefix} entries {mask.fmap.shape[0]} poison {poison} strided dO "
+        f"{strided_do}, {int(dead.sum())} dead rows: max abs diff o {diffs[0]:.3e}, dq "
+        f"{diffs[1]:.3e} (largest {float(dq_p.float().abs().max()):.3e}), dk/dv {diffs[2]:.3e}")
+    return diffs
+
+
+def sparse_kernels_vs_plain(dev):
+    """Phase 17; returns the largest abs difference of (o, dq, dk/dv)."""
+    M = sa.make_block_mask
+    pattern = np.zeros((6, 6), bool)  # tests/test_sparse_attention.py:124-135
+    for i in range(6):
+        pattern[i, i] = pattern[i, max(0, i - 2)] = pattern[i, 0] = True
+    cross = np.zeros((2, 6), bool)  # key blocks 3..5 unattended
+    cross[0, 0] = cross[0, 2] = cross[1, 1] = True
+    primitives = (dict(causal=True), dict(causal=True, window=20),
+                  dict(causal=True, window=20, global_prefix=5),
+                  dict(causal=True, window=20, global_prefix=5,
+                       extra_blocks=((5, 1), (4, 0))))
+    worst = [0.0, 0.0, 0.0]
+    for dtype in (torch.float32, torch.bfloat16):
+        # (B, H, Hkv, D, Dv, mask, options)
+        cases = [(2, 2, 2, 64, 64, M(96, block_q=16, block_k=16, **c), {})
+                 for c in primitives]
+        cases += [
+            (1, 4, 1, 64, 32, M(96, block_q=16, block_k=16, causal=True,
+                                block_pattern=pattern), dict(strided_do=True)),
+            (1, 2, 1, 128, 128, M(32, 96, block_q=16, block_k=16, block_pattern=cross),
+             dict(poison=True)),
+            # Rows with no live key: queries 55..63 see none of 32 keys.
+            (1, 2, 1, 32, 32, M(64, 32, block_q=16, block_k=16, causal=True, window=24), {}),
+            (2, 8, 2, 128, 128, M(512, block_q=64, block_k=64, causal=True, window=200,
+                                  global_prefix=70), dict(strided_do=True)),
+            (1, 4, 4, 64, 128, M(1024, block_q=128, block_k=64, causal=True, window=300,
+                                 global_prefix=40, extra_blocks=((7, 2),)), {}),
+            # The LM's shape and mask.
+            (1, LM_HEADS, LM_KV_HEADS, LM_D // LM_HEADS, LM_D // LM_HEADS, main_mask(),
+             dict(strided_do=True)),
+        ]
+        if dtype == torch.bfloat16:  # ku's sparse gate, its own inputs' scale
+            cases.append((1, GATE_H, GATE_H, GATE_D, GATE_D, gate_mask(),
+                          dict(amplitude=0.1)))
+        for i, (b, h, hkv, d, dv, mask, kw) in enumerate(cases):
+            diffs = sparse_case(dev, dtype, b, h, hkv, d, dv, mask, seed=i, **kw)
+            worst = [max(w, x) for w, x in zip(worst, diffs)]
+    return worst
+
+
+def route_sparse(kernels):
+    """The sparse layers through the kernels, or (the f32 check's plain run
+    only) through the plain versions on the card: the package has no
+    switch, so the dispatch is swapped here."""
+    sa.sparse_fwd, sa.sparse_bwd = (SPARSE_DISPATCH if kernels
+                                    else (sa.sparse_fwd_torch, sa.sparse_bwd_torch))
+
+
+def sparse_bound(which, b, h, hkv, n, kn, d, dv, pairs, itemsize, peak_bf16, peak_bw):
+    """(bound ms, bound_by) of one sparse kernel: 4·D operations a kept pair
+    for the forward (s, PV), 6·D for dq (s, dp, dq), 8·D for dk/dv (s, dp, dv,
+    dk), at the bf16 tensor-core peak; or its bytes at the memory rate: q, k,
+    v (and dO, lse, delta for the backward) read once, its outputs written
+    once. `pairs` is the mask's exact count over all heads."""
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[which] * pairs * d
+    qkv = (b * h * n * d + b * hkv * kn * (d + dv)) * itemsize
+    if which == "fwd":
+        nbytes = qkv + b * h * n * dv * itemsize + b * h * n * 4
+    else:
+        reads = qkv + b * h * n * dv * itemsize + 2 * b * h * n * 4
+        writes = (b * h * n * d if which == "dq" else b * hkv * kn * (d + dv)) * itemsize
+        nbytes = reads + writes
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sparse_inputs(gen, b, h, hkv, n, d, amplitude=1.0):
+    q = (torch.randn(b, h, n, d, generator=gen, device=DEVICE) * amplitude).bfloat16()
+    k, v = ((torch.randn(b, hkv, n, d, generator=gen, device=DEVICE) * amplitude).bfloat16()
+            for _ in range(2))
+    do = torch.randn(b, h, n, d, generator=gen, device=DEVICE).bfloat16()
+    return q, k, v, do
+
+
+def flex_ms(q, k, v, do, scale):
+    """flex_attention, compiled, over a block mask from the main mask's
+    mask_mod (causal AND (window OR sink)): (forward ms, backward ms as
+    forward + backward minus forward), each cold in L2, and its output. A
+    yardstick only: nothing in ku_torch calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx <= q_idx) & ((q_idx - kv_idx < SP_WINDOW) | (kv_idx < SP_SINKS))
+
+    flex = torch.compile(flex_attention)
+    bm = create_block_mask(mask_mod, None, None, SP_N, SP_N, device=DEVICE)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    fwd = lambda: flex(qr, kr, vr, block_mask=bm, scale=scale, enable_gqa=True)  # noqa: E731
+    grad = lambda: torch.autograd.grad(fwd(), (qr, kr, vr), do)  # noqa: E731
+    grad()  # compiles both
+    out = fwd().detach()
+    fwd_ms = timed_cold_ms(fwd, 10)
+    return fwd_ms, timed_cold_ms(grad, 10) - fwd_ms, out
+
+
+def sparse_training_path(dev, name) -> list:
+    """Phases 17-19; returns the entries of the three sparse kernels."""
+    errs = sparse_kernels_vs_plain(dev)
+    _, peak_bf16, peak_bw = peaks(name)
+
+    # 18. The LM trained at full width under a block mask, weights from a seed.
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy((rng.normal(size=(LM_VOCAB, LM_D)) * 0.05).astype(np.float32))
+    lm = TrainLM(g, table)
+    lm.core.block_mask = sa.make_block_mask(SP32_N, block_q=SP32_BLOCK, block_k=SP32_BLOCK,
+                                            causal=True, window=SP32_WINDOW,
+                                            global_prefix=SP32_SINKS)
+    grad_err = f32_training(lm, periodic_sequences(rng, SP32_SEQS, SP32_N + 1), 1, 1,
+                            route_sparse, f"block mask, {SP32_BLOCK}-blocks, window "
+                            f"{SP32_WINDOW} + {SP32_SINKS} sinks", sparse=True)
+
+    lm = lm.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    mask = main_mask()
+    lm.core.block_mask = mask
+    seqs = periodic_sequences(rng, 1, SP_N + 1)
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    tr = Trainer(lm, next_token_xent, optimizer=adam(TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, step_ms = timed_steps(tr, x, y, SP_TIMED)
+    launches = train_counts()
+    check_step_launches(2 + SP_TIMED, "bf16 sparse train_step", sparse=True)
+    check(all(math.isfinite(v) for v in losses), f"bf16 sparse losses {losses}")
+    median_ms = float(np.median(step_ms))
+    log(f"bf16 LM sparse train_step, B 1 x {SP_N} tokens, blocks {SP_BLOCK}, window "
+        f"{SP_WINDOW} + {SP_SINKS} sinks ({mask.fmap.shape[0]} entries, "
+        f"{1 - mask.sparsity:.4f} of the square): losses {losses}; launches (sparse fwd, "
+        f"dq, dkv) {launches[5:]}, flash and decode none; peak memory "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    log(f"sparse train: step {median_ms:.3f} ms median of {SP_TIMED} (CUDA events; "
+        f"{step_ms[0]:.3f}..{step_ms[-1]:.3f}), {SP_N / (median_ms / 1e3):.1f} tokens/s")
+    zero_counts()
+    logits = tr.predict(x, batch_size=1)
+    check(train_counts() == (0,) * 5 + (2 * LM_BLOCKS, 0, 0),
+          f"sparse predict launched {train_counts()}")
+    check(logits.shape == (1, SP_N, LM_VOCAB) and bool(np.isfinite(logits).all()),
+          f"sparse predict: {logits.shape}, finite {np.isfinite(logits).all()}")
+    log(f"sparse predict: logits {logits.shape}, launches (sparse fwd, dq, dkv) "
+        f"{train_counts()[5:]}")
+
+    # 19. Where a step's time goes, and each sparse kernel alone.
+    wall, rows, clocks = profiled(lambda: tr.train_step(x, y))
+    log_profile("one bf16 sparse train step", wall, rows, clocks)
+    check(not any("flash_" in r[2] for r in rows), "a flash kernel ran in the sparse step")
+    names = ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")
+    path = {k: per_launch_ms(rows, k) for k in names}
+    attn_us = sum(r[0] for r in rows if "sparse_" in r[2])
+    log(f"profile: sparse kernels {attn_us / 1e3:.3f} ms of "
+        f"{sum(r[0] for r in rows) / 1e3:.3f} ms device time; a launch on the path: fwd "
+        f"{path[names[0]]:.4f} ms, dq {path[names[1]]:.4f} ms, dk/dv {path[names[2]]:.4f} ms")
+    del tr, lm, logits
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    hd = LM_D // LM_HEADS
+    scale = 1.0 / math.sqrt(LM_D)
+    q, k, v, do = sparse_inputs(gen, 1, LM_HEADS, LM_KV_HEADS, SP_N, hd)
+    o, lse = sa.sparse_fwd_cuda(q, k, v, mask, scale)
+    delta = fa._delta(o, do)
+    pairs = sa.kept_pairs(mask) * LM_HEADS
+    lib_fwd_ms, lib_bwd_ms, lib_out = flex_ms(q, k, v, do, scale)
+    log(f"flex_attention (compiled, same mask_mod) against the sparse forward kernel: max abs "
+        f"diff {_max_diff(lib_out, o):.3e}")
+    entries = []
+    for which, kernel, plain, args, err, line, lib in (
+            ("fwd", sa.sparse_fwd_cuda, sa.sparse_fwd_torch, (q, k, v), errs[0], 230,
+             lib_fwd_ms),
+            ("dq", sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dq_torch,
+             (q, k, v, do, lse, delta), errs[1], 278, lib_bwd_ms),
+            ("dkv", sa.sparse_bwd_dkv_cuda, sa.sparse_bwd_dkv_torch,
+             (q, k, v, do, lse, delta), errs[2], 320, lib_bwd_ms)):
+        kernel(*args, mask, scale)
+        ms = timed_cold_ms(lambda: kernel(*args, mask, scale), 5)
+        plain(*args, mask, scale)
+        plain_ms = timed_cold_ms(lambda: plain(*args, mask, scale), 3)
+        bound_ms, bound_by = sparse_bound(which, 1, LM_HEADS, LM_KV_HEADS, SP_N, SP_N, hd,
+                                          hd, pairs, 2, peak_bf16, peak_bw)
+        name_k = f"sparse_{which}_kernel"
+        log(f"sparse_{which} at B1 H{LM_HEADS}/{LM_KV_HEADS} N{SP_N} D{hd} bf16, "
+            f"{pairs} kept pairs, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}); on the path (profiler) "
+            f"{path[name_k]:.4f} ms a launch; flex_attention "
+            f"{'forward' if which == 'fwd' else 'backward (fwd+bwd minus fwd)'} {lib:.4f} ms")
+        entries.append({
+            "name": "sparse_fwd" if which == "fwd" else f"sparse_bwd_{which}",
+            "route": "cuda",
+            "source": "ku_torch/csrc/sparse_attention.cu",
+            "replaces": f"ku/pallas/sparse_attention.py:{line}",
+            "launches": launches[5 + ("fwd", "dq", "dkv").index(which)],
+            "max_abs_err": err,
+            "ms": ms,
+            "path_ms": path[name_k],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # flex_attention over the same mask_mod; one backward computes
+            # dq, dk and dv together.
+            "library_ms": lib,
+        })
+    del q, k, v, do, o, lse, delta, lib_out
+
+    # ku's sparse gate: the sparse kernels against the dense causal flash
+    # forward at 64k (ku's sparse_vs_causal_speedup).
+    gmask = gate_mask()
+    q, k, v, do = sparse_inputs(gen, 1, GATE_H, GATE_H, GATE_N, GATE_D, 0.1)
+    gscale = 1.0 / math.sqrt(GATE_D)
+    o, lse = sa.sparse_fwd_cuda(q, k, v, gmask, gscale)
+    delta = fa._delta(o, do)
+    fwd_ms = timed_cold_ms(lambda: sa.sparse_fwd_cuda(q, k, v, gmask, gscale), 3)
+    dq_ms = timed_cold_ms(lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, gmask,
+                                                        gscale), 3)
+    dkv_ms = timed_cold_ms(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, gmask,
+                                                          gscale), 3)
+    fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale, causal=True)
+    causal_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale,
+                                                        causal=True), 2)
+    gpairs = sa.kept_pairs(gmask) * GATE_H
+    bounds = [sparse_bound(w, 1, GATE_H, GATE_H, GATE_N, GATE_N, GATE_D, GATE_D, gpairs, 2,
+                           peak_bf16, peak_bw)[0] for w in ("fwd", "dq", "dkv")]
+    log(f"sparse gate B1 H{GATE_H} N{GATE_N} D{GATE_D} bf16, window {GATE_WINDOW} + "
+        f"{SP_SINKS} sinks ({gmask.fmap.shape[0]} entries, {1 - gmask.sparsity:.4f} of the "
+        f"square, {gpairs} kept pairs), cold L2: sparse fwd {fwd_ms:.4f} ms, dq "
+        f"{dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms (bounds {bounds[0]:.5f}, {bounds[1]:.5f}, "
+        f"{bounds[2]:.5f} ms); dense causal flash forward {causal_ms:.4f} ms: "
+        f"sparse_vs_causal_speedup {causal_ms / fwd_ms:.3f}")
+    log(f"max abs diff kernel vs plain: sparse o {errs[0]:.3e}, dq {errs[1]:.3e}, dk/dv "
+        f"{errs[2]:.3e}; f32 LM gradients under the mask through the kernels vs the plain "
+        f"versions {grad_err:.3e} of each tensor's largest entry")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1587,7 +1955,7 @@ def main() -> int:
     # 2. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
     specs = [(cd_gibbs.SOURCE, cd_gibbs.NAME), (fa.SOURCE, fa.NAME),
-             (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME)]
+             (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME), (sa.SOURCE, sa.NAME)]
     built = _build.build_many(specs)
     log(f"build: {', '.join(lib.name for lib, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1602,6 +1970,8 @@ def main() -> int:
     kernels += serving_path(dev, name)
     torch.cuda.empty_cache()  # the serving models are gone with serving_path
     kernels += training_path(dev, name)
+    torch.cuda.empty_cache()  # the dense-attention training model is gone
+    kernels += sparse_training_path(dev, name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -49,9 +49,18 @@ unless ``flash_decode=False`` asks for the plain reads: ``ku``'s masked
 read, or for a pool its page scan. On a CUDA tensor each launches its
 kernel (or raises); on a CPU tensor each takes its plain version.
 
+``block_mask`` (a :class:`ku_torch.kernels.sparse_attention.BlockMask`
+from ``make_block_mask``) routes the non-decode scaled path, after RoPE,
+through :func:`ku_torch.kernels.sparse_attention.sparse_attention`: the
+block-sparse kernels on a CUDA tensor (forward, and dq and dk/dv when
+gradients are wanted), their plain versions on a CPU tensor. The mask
+carries the pattern, causality included: the layer's ``causal`` must agree
+and its ``window`` and ``global_prefix`` stay unset; dropout, segment ids,
+softcap and decode are refused with ``ku``'s messages.
+
 Not ported yet, and raising ``NotImplementedError`` with the slice that
-brings them: the ring cache (``window`` with ``decode=True``),
-``quant_weights`` and ``block_mask``.
+brings them: the ring cache (``window`` with ``decode=True``) and
+``quant_weights``.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from ku_torch.kernels.decode_attention import (
     gather_pages,
 )
 from ku_torch.kernels.flash_attention import flash_attention
+from ku_torch.kernels.sparse_attention import sparse_attention
 
 SIMILARITY_TYPE_DIFF_ABS = "diff_abs"
 SIMILARITY_TYPE_PLAIN = "plain"
@@ -193,13 +203,31 @@ class MultiHeadAttention(nn.Module):
             return s
         return self.logit_softcap * torch.tanh(s / self.logit_softcap)
 
-    def _validate(self, decode, segment_ids, block_mask, prompt_lengths):
+    def _validate(self, decode, segment_ids, block_mask, prompt_lengths,
+                  deterministic):
         if self.similarity_type not in _SIMILARITY_TYPES:
             raise ValueError(f"similarity_type {self.similarity_type!r} is not valid.")
         if self.window is not None and not self.causal:
             raise ValueError("window requires causal=True")
+        scaled = (self.similarity_type == SIMILARITY_TYPE_SCALED
+                  and not self.use_mask)
         if block_mask is not None:
-            raise _not_ported("block-sparse attention (block_mask)", "block-sparse")
+            # The pattern, causality included, is the mask's: the layer's
+            # causal flag must agree and its window must be unset.
+            if not scaled or decode or segment_ids is not None:
+                raise ValueError("block_mask supports the scaled no-mask "
+                                 "non-decode path without segment_ids")
+            if (self.causal != block_mask.causal or self.window is not None
+                    or self.global_prefix):
+                raise ValueError(
+                    "block_mask pattern conflicts with the layer: set "
+                    "causal on the mask (and window/global_prefix only "
+                    "on the mask)")
+            if self.dropout_rate > 0.0 and not deterministic:
+                raise ValueError(
+                    "block_mask cannot apply attention-probability "
+                    "dropout (no N² probs exist to drop) — set "
+                    "dropout_rate=0.0")
         if self.global_prefix:
             if self.window is None:
                 raise ValueError("global_prefix (attention sinks) is an escape "
@@ -229,8 +257,6 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("kv_page_size requires max_decode_len")
         elif self.kv_num_pages is not None:
             raise ValueError("kv_num_pages requires kv_page_size")
-        scaled = (self.similarity_type == SIMILARITY_TYPE_SCALED
-                  and not self.use_mask)
         if decode and not scaled:
             raise ValueError("decode supports the scaled no-mask path")
         if decode and segment_ids is not None:
@@ -243,6 +269,8 @@ class MultiHeadAttention(nn.Module):
                                  f"{self.logit_softcap}")
             if not scaled:
                 raise ValueError("logit_softcap requires the scaled no-mask path")
+            if block_mask is not None:
+                raise ValueError("the block-sparse kernel has no logit_softcap")
         if prompt_lengths is not None and not decode:
             raise ValueError("prompt_lengths is a decode-prefill argument")
 
@@ -255,7 +283,8 @@ class MultiHeadAttention(nn.Module):
         cache dict updated in place (created when ``cache`` is None or
         lacks this layer's entries). ``scope`` is the layer's path in the
         cache, as in ``ku``'s collection (``block0/MultiHeadAttention_1``)."""
-        self._validate(decode, segment_ids, block_mask, prompt_lengths)
+        self._validate(decode, segment_ids, block_mask, prompt_lengths,
+                       deterministic)
         q, k, v = inputs[0], inputs[1], inputs[2]
         m = inputs[3] if len(inputs) > 3 else None
         d_k, d_v = k.shape[-1], v.shape[-1]
@@ -285,6 +314,9 @@ class MultiHeadAttention(nn.Module):
             if cache is None:
                 cache = {}
             head = self._decode(q_h, k_h, v_h, d_k, prompt_lengths, cache, scope)
+        elif block_mask is not None:
+            head = sparse_attention(q_h, k_h, v_h, block_mask,
+                                    softmax_scale=1.0 / math.sqrt(d_k))
         elif (self.use_flash and self.similarity_type == SIMILARITY_TYPE_SCALED
               and not self.use_mask
               and (self.dropout_rate == 0.0 or deterministic)):

@@ -5,7 +5,7 @@ Port of ``ku/nn/transformer.py``:
 - :class:`Transformer`: 2 × (MHA + dropout + residual + LayerNorm), then a
   4×-wide swish FFN + dropout + residual + LayerNorm; forwards the
   attention options, including the KV-cache decode protocol (dense, paged
-  or int8 caches).
+  or int8 caches) and a block-sparse ``block_mask``.
 - :class:`InterferedTransformer`: the same conditioned on a per-sample
   embedding, tiled over the sequence and concatenated before a relu FFN.
 
@@ -80,8 +80,10 @@ class Transformer(nn.Module):
 
     Takes ``ku``'s fields; the input width is ``d_output`` (the residuals
     need it). ``device``, ``dtype`` and ``generator`` place and draw the
-    initial weights. Options that are not ported raise
-    ``NotImplementedError`` (see :mod:`ku_torch.nn.attention`)."""
+    initial weights. The call's ``block_mask`` goes to both attention
+    sublayers, as in ``ku``, and with it the layer's ``causal`` must be the
+    mask's and ``window`` / ``global_prefix`` unset. Options that are not
+    ported raise ``NotImplementedError`` (see :mod:`ku_torch.nn.attention`)."""
 
     def __init__(self, num_head: int, d_output: int, dropout_rate: float = 0.0,
                  similarity_type: str = SIMILARITY_TYPE_SCALED,

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import ku
+from ku_torch.kernels.sparse_attention import make_block_mask
 from ku_torch.nn import InterferedTransformer, MultiHeadAttention, Transformer
 from ku_torch.utility import (
     params_from_numpy,
@@ -254,9 +255,13 @@ def test_features_not_ported_raise():
                               device="cpu")
     with pytest.raises(NotImplementedError):
         ring([x, x, x], decode=True)
+    # block_mask is ported (tests/test_torch_sparse_*.py): a real mask works.
     mha = MultiHeadAttention(2, 8, causal=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mha([x, x, x], block_mask=object())
+    mask = make_block_mask(4, block_q=2, block_k=2, causal=True, window=2,
+                           global_prefix=1)
+    x4 = torch.zeros(1, 4, 8)
+    with torch.no_grad():
+        assert mha([x4, x4, x4], block_mask=mask).shape == (1, 4, 8)
     # Gradients through use_flash are ported (tests/test_torch_training.py).
     flash = MultiHeadAttention(2, 8, causal=True, use_flash=True, device="cpu")
     with torch.no_grad():

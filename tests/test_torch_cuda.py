@@ -1,6 +1,7 @@
 """ku_torch's kernels on the card against their plain versions: the CD
-kernel here, the serving kernels (flash forward, flash decoding) and the
-training ones (the flash backward, a Trainer step) below.
+kernel here, the serving kernels (flash forward, flash decoding), the
+training ones (the flash backward, a Trainer step) and the block-sparse
+ones (forward, dq, dk/dv, a Trainer step under a block mask) below.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -578,3 +579,149 @@ def test_train_step_on_the_card_goes_through_the_flash_kernels(device):
     assert torch.isfinite(torch.tensor(tr.train_step(x, y)["loss"]))
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(counts(), before)] == [8, 8, 8, 0]
+
+
+# ---------------------------------------------------------------------------
+# The block-sparse kernels (forward, dq, dk/dv) against their plain versions
+# on the same inputs (the backward on the forward kernel's o, lse and
+# delta), with the tolerances above: the forward's of the serving kernels,
+# the backward's of the flash backward. And a Trainer step under a block
+# mask through all three.
+# ---------------------------------------------------------------------------
+
+from ku_torch.kernels import sparse_attention as sa  # noqa: E402
+
+
+def _strided_pattern():
+    pat = np.zeros((6, 6), bool)
+    for i in range(6):
+        pat[i, i] = pat[i, max(0, i - 2)] = pat[i, 0] = True
+    return pat
+
+
+def _cross_pattern():
+    pat = np.zeros((2, 6), bool)
+    pat[0, 0] = pat[0, 2] = pat[1, 1] = True
+    return pat
+
+
+# (make_block_mask arguments, B, H, Hkv, D, Dv, options)
+SPARSE_CASES = {
+    "causal_d64": (((96,), dict(block_q=16, block_k=16, causal=True)), 2, 2, 2, 64, 64, {}),
+    "window_sinks_extra_mqa": (((96,), dict(block_q=16, block_k=16, causal=True, window=20,
+                                            global_prefix=5, extra_blocks=((5, 1), (4, 0)))),
+                               2, 4, 1, 64, 64, dict(strided_do=True)),
+    "causal_pattern_narrow_values": (((96,), dict(block_q=16, block_k=16, causal=True,
+                                                  block_pattern=_strided_pattern())),
+                                     1, 4, 1, 64, 32, {}),
+    "cross_poisoned": (((32, 96), dict(block_q=16, block_k=16,
+                                       block_pattern=_cross_pattern())),
+                       1, 2, 1, 128, 128, dict(poison=True)),
+    "dead_rows": (((64, 32), dict(block_q=16, block_k=16, causal=True, window=24)),
+                  1, 2, 1, 32, 32, {}),
+    "nonsquare_blocks_gqa": (((512,), dict(block_q=128, block_k=64, causal=True, window=200,
+                                           global_prefix=70)), 2, 8, 2, 128, 128,
+                             dict(strided_do=True)),
+    "blocks_512_wide_values": (((1024,), dict(block_q=512, block_k=512, causal=True,
+                                              window=600, global_prefix=30)),
+                               1, 4, 4, 64, 128, {}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_kernels_match_plain(device, case, dtype):
+    (args, kw), b, h, hkv, d, dv, opts = SPARSE_CASES[case]
+    mask = sa.make_block_mask(*args, **kw)
+    g = torch.Generator(device=device).manual_seed(4)
+    q = torch.randn(b, h, mask.n, d, generator=g, device=device).to(dtype)
+    k = torch.randn(b, hkv, mask.kn, d, generator=g, device=device).to(dtype)
+    v = torch.randn(b, hkv, mask.kn, dv, generator=g, device=device).to(dtype)
+    unattended = torch.from_numpy(mask.qcnt == 0).to(device).repeat_interleave(mask.block_k)
+    if opts.get("poison"):
+        k[:, :, unattended] = float("nan")
+        v[:, :, unattended] = float("nan")
+    if opts.get("strided_do"):
+        do = torch.randn(b, mask.n, h, dv, generator=g, device=device).to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(b, h, mask.n, dv, generator=g, device=device).to(dtype)
+    before = tuple(f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
+                                        sa.sparse_bwd_dkv_cuda))
+    o, lse = sa.sparse_fwd(q, k, v, mask, 0.1)
+    dq, dk, dv_ = sa.sparse_bwd(q, k, v, o, lse, do, mask, 0.1)
+    torch.cuda.synchronize()
+    assert tuple(f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
+                                      sa.sparse_bwd_dkv_cuda)) == tuple(x + 1 for x in before)
+    for t in (o, lse, dq, dk, dv_):
+        assert torch.isfinite(t).all()
+    o_p, lse_p = sa.sparse_fwd_torch(q, k, v, mask, 0.1)
+    torch.testing.assert_close(o, o_p, **SERVE_TOL[dtype])
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    _bwd_close(dq, sa.sparse_bwd_dq_torch(q, k, v, do, lse, delta, mask, 0.1), dtype)
+    dk_p, dv_p = sa.sparse_bwd_dkv_torch(q, k, v, do, lse, delta, mask, 0.1)
+    _bwd_close(dk, dk_p, dtype)
+    _bwd_close(dv_, dv_p, dtype)
+    assert torch.all(dk[:, :, unattended] == 0) and torch.all(dv_[:, :, unattended] == 0)
+    dead = lse == -1e30
+    assert torch.all(o[dead] == 0) and torch.all(dq[dead] == 0)
+    if case == "dead_rows":
+        assert int(dead.sum()) == 2 * 9
+
+
+def test_sparse_wrappers_reject_what_the_kernels_do_not_take(device):
+    mask = sa.make_block_mask(32, block_q=16, block_k=16, causal=True)
+    q = torch.zeros(1, 2, 32, 16, device=device)
+    lse = torch.zeros(1, 2, 32, device=device)
+    with pytest.raises(ValueError, match="float32 or all"):
+        sa.sparse_fwd_cuda(q, q, q.bfloat16(), mask)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sa.sparse_bwd_dq_cuda(q, q, q, q.cpu(), lse, lse, mask)
+    with pytest.raises(ValueError, match="float32 on"):
+        sa.sparse_bwd_dkv_cuda(q, q, q, q, lse, lse.cpu(), mask)
+    wide = torch.zeros(1, 2, 32, 160, device=device)
+    with pytest.raises(ValueError, match="up to 128"):
+        sa.sparse_bwd_dkv_cuda(wide, wide, wide, wide, lse, lse, mask)
+    with pytest.raises(ValueError, match="do not match the BlockMask"):
+        sa.sparse_fwd_cuda(q[:, :, :16], q, q, mask)
+
+
+class _SparseLM(_TiedLM):
+    """_TiedLM's blocks called under a block mask."""
+
+    def __init__(self, device, mask):
+        super().__init__(device, use_flash=True)
+        self.mask = mask
+
+    def forward(self, ids, deterministic=True):
+        x = self.embed(ids)
+        for block in self.blocks:
+            x = block([x], deterministic=deterministic, block_mask=self.mask)
+        return x @ self.embed.weight.T
+
+
+def test_train_step_under_a_block_mask_goes_through_the_sparse_kernels(device, monkeypatch):
+    """Trainer.train_step on a small f32 LM under a window + sinks mask
+    launches the sparse forward, dq and dk/dv kernels once per attention
+    sublayer and no flash kernel; its loss and gradients agree with the same
+    step through the plain versions to 1e-4."""
+    mask = sa.make_block_mask(96, block_q=32, block_k=16, causal=True, window=40,
+                              global_prefix=5)
+    seqs = torch.randint(0, 50, (3, 97), device=device)
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    fast = _SparseLM(device, mask)
+    plain = _SparseLM(device, mask)
+    plain.load_state_dict(fast.state_dict())
+    kernels = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda,
+               sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+    before = [f.launches for f in kernels]
+    loss = Trainer(fast, _xent).train_step(x, y)["loss"]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [0, 0, 0, 4, 4, 4]
+    monkeypatch.setattr(sa, "sparse_fwd", sa.sparse_fwd_torch)
+    monkeypatch.setattr(sa, "sparse_bwd", sa.sparse_bwd_torch)
+    loss_p = Trainer(plain, _xent).train_step(x, y)["loss"]
+    assert [f.launches - b for f, b in zip(kernels, before)] == [0, 0, 0, 4, 4, 4]
+    assert abs(loss - loss_p) <= 1e-4 * abs(loss_p)
+    for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-4, msg=name)
