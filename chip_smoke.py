@@ -8,7 +8,7 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: CUDA must be present; print the card's name and power limit.
-2. Build: compile the five kernel sources of ku_torch/csrc with nvcc, one
+2. Build: compile the six kernel sources of ku_torch/csrc with nvcc, one
    process per source, all started together; print their register and
    spill lines.
 3. CD kernel against its plain version on the card, same inputs:
@@ -25,6 +25,30 @@ Phases (any failure raises and the script exits non-zero):
    reconstruction error fall.
 5. RBM timing with CUDA events after warm-up: samples/s of RBM.fit, and the
    kernel, its plain version and the bound at the path's shape.
+20. (Run right after phase 5, on its data.) Data-parallel CD-k, kernel #2
+   (the statistics and apply step kernels), against its plain version on
+   the card with the same Philox draws, at world size 1 and at 4 ranks
+   emulated in one process (their buffers summed in rank order in place of
+   the all-reduce), with phase 3's cases and limits: saturated, k 1 and 2,
+   2 epochs, a ragged last shard; random parameters in all three modes,
+   3 steps. Then world size 1 against kernel #1 over the path's 3 epochs,
+   bit for bit (the same device code and sums), and 4 ranks emulated
+   against kernel #1 (saturated over 2 epochs, random over 3 steps; params
+   rtol/atol 1e-5, scores 1e-4: sums in another order).
+21. The path: RBM({"lr": 1e-3, "batch_size": 128, "epochs": 3}, 128).fit(V,
+   mesh=make_mesh()) in a real NCCL world of one process, on phase 4's
+   data: 1,407 launches of each step kernel and none of kernel #1, finite
+   scores, a falling reconstruction error, params equal to phase 4's
+   single-device fit bit for bit; then the DBN 784 -> 256 -> 128 with
+   mesh=.
+22. Timing: RBM.fit with and without the mesh in turns (samples/s); the
+   data-parallel run beside kernel #1's; a torch.profiler window over 20
+   steps (each step kernel's and the all-reduce's device time a step, the
+   host time a step, the device busy share); the host time of each of a
+   step's three calls (two launches and the all-reduce) over 200 steps;
+   the step kernels alone at the path's shape, cold in L2, against their
+   plain version and their bound.
+   The process group is destroyed at the end of the phase.
 6. Serving kernels against their plain versions on the card, f32
    (rtol/atol 1e-4: f32 sums in another order) and bf16 (rtol 1e-2, just
    above one bf16 ulp, for the output's own rounding; atol 2e-3 for the
@@ -162,7 +186,7 @@ Phases (any failure raises and the script exits non-zero):
    forward); then ku's sparse gate: the sparse kernels against the dense
    causal flash forward at 64k (ku's sparse_vs_causal_speedup).
 
-The last lines are the `kernels` JSON line (9 kernels), the card's name
+The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -180,9 +204,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
+from ku_torch.dist import make_mesh
 from ku_torch.ebm import DBN, RBM
 from ku_torch.engine_ext import Trainer, adam
-from ku_torch.kernels import _build, cd_gibbs
+from ku_torch.kernels import _build, cd_gibbs, cd_gibbs_dp
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
 from ku_torch.kernels import sparse_attention as sa
@@ -370,8 +397,9 @@ def recon_error(rbm, x) -> float:
     return float((rbm.inv_transform(rbm.transform(x, g), g) - x).abs().mean())
 
 
-def rbm_path(dev, name) -> dict:
-    """Phases 3-5; returns the CD kernel's entry of the `kernels` line."""
+def rbm_path(dev, name):
+    """Phases 3-5; returns the CD kernel's entry of the `kernels` line, the
+    path's data and phase 4's fitted parameters (phases 20-22 reuse them)."""
     max_abs_err = check_against_plain(dev)
 
     V = torch.from_numpy(mnist_like()).to(dev)
@@ -437,6 +465,7 @@ def rbm_path(dev, name) -> dict:
         f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
         f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
+    fitted = {n: t.clone() for n, t in rbm.params.items()}
     return {
         "name": "cd_gibbs",
         "route": "cuda",
@@ -452,6 +481,261 @@ def rbm_path(dev, name) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
         # No single PyTorch call computes a CD-k training run.
+        "library_ms": None,
+    }, V, fitted, kernel_ms
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel RBM path (phases 20-22).
+# ---------------------------------------------------------------------------
+
+DP_STEP_KERNELS = (cd_gibbs_dp.cd_dp_stats_cuda, cd_gibbs_dp.cd_dp_apply_cuda)
+DP_WORLD = 4  # ranks emulated in one process
+NVLINK_BW = 450e9  # bytes/s each way between two H100 SXM cards
+
+
+def dp_counts():
+    return tuple(f.launches for f in DP_STEP_KERNELS)
+
+
+def assert_params(got, want, tol, what):
+    for n in want:
+        torch.testing.assert_close(got[n], want[n], rtol=tol[0], atol=tol[1],
+                                   msg=f"{n}, {what}")
+
+
+def dp_against_plain(dev) -> float:
+    """Phase 20, kernel #2 against its plain version at W = 1 and W = 4
+    emulated; returns the largest abs difference seen."""
+    worst = 0.0
+    # (mode, k, saturated, steps, epochs), at the RBM's shape.
+    cases = [(0, k, True, 4, 2) for k in (1, 2)]
+    cases += [(mode, 1, False, 3, 1) for mode in (0, 1, 2)]
+    for mode, k, saturated, steps, epochs in cases:
+        params, v_all, mask = problem(dev, V_DIM, H_DIM, BATCH, steps, mode,
+                                      saturated, seed=20 + mode)
+        for world in (1, DP_WORLD):
+            args = (world, params, v_all, mask, 4321, LR, k, mode, BATCH, epochs)
+            p_k, s_k = cd_gibbs_dp.cd_train_dp_emulated(*args)
+            torch.cuda.synchronize()
+            p_p, s_p = cd_gibbs_dp.cd_train_dp_emulated(*args, plain=True)
+            torch.cuda.synchronize()
+            what = f"W {world}, mode {mode}, k {k}"
+            assert_params(p_k, p_p, (1e-5, 1e-5), what)
+            s_tol = (1e-5, 1e-5) if saturated else (1e-4, 1e-4)
+            torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1],
+                                       msg=f"scores, {what}")
+            p_diff = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
+            s_diff = float((s_k - s_p).abs().max())
+            worst = max(worst, p_diff, s_diff)
+            log(f"cd_gibbs_dp vs plain: {what} saturated {saturated} steps "
+                f"{steps * epochs}: max abs diff params {p_diff:.3e}, scores "
+                f"{s_diff:.3e}")
+    return worst
+
+
+def dp_against_kernel_one(dev, V):
+    """Phase 20, kernel #2 against kernel #1: W = 1 at the path's shape over
+    its 3 epochs, bit for bit; W = 4 emulated in saturation over 2 epochs and
+    on random parameters over 3 steps."""
+    params, _, _ = problem(dev, V_DIM, H_DIM, BATCH, 1, 0, False, seed=30)
+    mask = torch.ones(N, device=dev)
+    args = (params, V, mask, 2024, LR, K, 0, BATCH, EPOCHS)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args)
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p_dp[n], p_1[n]) for n in p_1) and torch.equal(s_dp, s_1)
+    diff = max(float((p_dp[n] - p_1[n]).abs().max()) for n in p_1)
+    log(f"cd_gibbs_dp W 1 vs cd_gibbs at {N}x{V_DIM}x{H_DIM}, {EPOCHS} epochs: "
+        f"bit for bit {same} (max abs diff params {diff:.3e}, scores "
+        f"{float((s_dp - s_1).abs().max()):.3e})")
+    check(same, "kernel #2 at world size 1 differs from kernel #1")
+    for saturated, steps, epochs in ((True, 4, 2), (False, 3, 1)):
+        params, v_all, mask = problem(dev, V_DIM, H_DIM, BATCH, steps, 0,
+                                      saturated, seed=31)
+        args = (params, v_all, mask, 4321, LR, K, 0, BATCH, epochs)
+        p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(DP_WORLD, *args)
+        p_1, s_1 = cd_gibbs.cd_train_cuda(*args)
+        torch.cuda.synchronize()
+        what = f"W {DP_WORLD} vs kernel #1, saturated {saturated}"
+        assert_params(p_dp, p_1, (1e-5, 1e-5), what)
+        torch.testing.assert_close(s_dp, s_1, rtol=1e-4, atol=1e-4, msg=what)
+        log(f"cd_gibbs_dp {what}, {steps * epochs} steps: max abs diff params "
+            f"{max(float((p_dp[n] - p_1[n]).abs().max()) for n in p_1):.3e}, "
+            f"scores {float((s_dp - s_1).abs().max()):.3e}")
+
+
+def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
+    """Phases 20-22; returns kernel #2's entry of the `kernels` line."""
+    # 20. Kernel #2 against its plain version and against kernel #1.
+    max_abs_err = dp_against_plain(dev)
+    dp_against_kernel_one(dev, V)
+
+    # 21. The path: RBM.fit(mesh=) in an NCCL world of one process.
+    probe = V[:4096]
+    mesh = make_mesh()
+    try:
+        log(f"mesh: {mesh}, backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+        cd_gibbs.cd_train_cuda.launches = 0
+        for f in DP_STEP_KERNELS:
+            f.launches = 0
+        rbm = RBM({"lr": LR, "batch_size": BATCH, "epochs": EPOCHS}, H_DIM,
+                  input_dim=V_DIM, seed=0, device=dev)
+        err_before = recon_error(rbm, probe)
+        rbm.fit(V, mesh=mesh)
+        torch.cuda.synchronize()
+        err_after = recon_error(rbm, probe)
+        steps = EPOCHS * N // BATCH
+        scores = rbm.last_scores
+        check(dp_counts() == (steps, steps),
+              f"expected {steps} launches of each step kernel, got {dp_counts()}")
+        check(cd_gibbs.cd_train_cuda.launches == 0, "the mesh fit launched kernel #1")
+        check(scores.shape == (steps,), f"scores shape {scores.shape}")
+        check(bool(torch.isfinite(scores).all()), "non-finite score")
+        check(err_after < err_before,
+              f"reconstruction error did not fall: {err_before} -> {err_after}")
+        same = all(torch.equal(rbm.params[n], fitted[n]) for n in fitted)
+        log(f"RBM.fit(mesh=make_mesh()): reconstruction error {err_before:.4f} -> "
+            f"{err_after:.4f}, score first/last epoch "
+            f"{float(scores[:N // BATCH].mean()):.4f} / "
+            f"{float(scores[-(N // BATCH):].mean()):.4f}; params equal phase 4's "
+            f"single-device fit bit for bit: {same}")
+        check(same, "the mesh fit differs from phase 4's single-device fit")
+
+        dbn = DBN()
+        dbn.add_stack(RBM({"lr": LR, "batch_size": BATCH, "epochs": 1}, 256,
+                          seed=1, device=dev))
+        dbn.add_stack(RBM({"lr": LR, "batch_size": BATCH, "epochs": 1}, 128,
+                          seed=2, device=dev))
+        dbn.fit(V, mesh=mesh)
+        h = dbn.transform(V)
+        torch.cuda.synchronize()
+        check(h.shape == (N, 128), f"DBN transform shape {h.shape}")
+        for layer in dbn.rbm_layers:
+            check(bool(torch.isfinite(layer.last_scores).all()), "non-finite DBN score")
+        steps_all = steps + 2 * N // BATCH
+        check(dp_counts() == (steps_all, steps_all),
+              f"expected {steps_all} launches of each step kernel, got {dp_counts()}")
+        check(cd_gibbs.cd_train_cuda.launches == 0, "the mesh DBN launched kernel #1")
+        launches = sum(dp_counts())
+        log(f"DBN 784-256-128 with mesh=: transform {tuple(h.shape)}, mean "
+            f"activation {float(h.mean()):.4f}; step-kernel launches on the main "
+            f"path: {dp_counts()} (stats, apply), kernel #1: 0")
+
+        # 22. Timing: the fit at W = 1 beside RBM.fit's, in turns.
+        hps = {"lr": LR, "batch_size": BATCH, "epochs": EPOCHS}
+        fits = {"mesh": lambda: RBM(hps, H_DIM, input_dim=V_DIM, seed=3,
+                                    device=dev).fit(V, verbose=0, mesh=mesh),
+                "single": lambda: RBM(hps, H_DIM, input_dim=V_DIM, seed=3,
+                                      device=dev).fit(V, verbose=0)}
+        fit_ms = {k: [] for k in fits}
+        for key in ("single", "mesh", "mesh", "single"):
+            fit_ms[key].append(timed_ms(fits[key], 1))
+        for key, ms in fit_ms.items():
+            log(f"RBM.fit {key:6s} {EPOCHS} epochs: {ms[0]:.3f} / {ms[1]:.3f} ms, "
+                f"{N * EPOCHS / (min(ms) / 1e3):.1f} samples/s (best)")
+        params = {n: t.clone() for n, t in fitted.items()}
+        mask = torch.ones(N, device=dev)
+        run_ms = timed_ms(lambda: cd_gibbs_dp.cd_train_dp(
+            mesh, params, V, mask, 99, LR, K, 0, BATCH, EPOCHS), 2)
+        log(f"cd_train_dp {EPOCHS} epochs at W 1: {run_ms:.3f} ms, "
+            f"{run_ms / steps * 1e3:.2f} us a step; kernel #1's run (phase 5) "
+            f"{kernel_one_ms:.3f} ms, {kernel_one_ms / steps * 1e3:.2f} us a step")
+
+        # A profile of about 20 steps of the run.
+        prof_steps = 20
+        v20, m20 = V[:prof_steps * BATCH], mask[:prof_steps * BATCH]
+        wall, rows, clocks = profiled(lambda: cd_gibbs_dp.cd_train_dp(
+            mesh, params, v20, m20, 5, LR, K, 0, BATCH, 1))
+        log_profile(f"{prof_steps} data-parallel CD steps, W 1", wall, rows,
+                    clocks, steps=prof_steps)
+        stats_path = per_launch_ms(rows, "cd_dp_stats")
+        apply_path = per_launch_ms(rows, "cd_dp_apply")
+        nccl = [r for r in rows if "nccl" in r[2].lower()]
+        allreduce_ms = (sum(r[0] for r in nccl) / sum(r[1] for r in nccl) / 1e3
+                        if nccl else None)
+        log(f"on the path: stats {stats_path:.4f} ms, apply {apply_path:.4f} ms, "
+            f"all-reduce {allreduce_ms if allreduce_ms is None else round(allreduce_ms, 6)}"
+            f" ms a step (device time; {', '.join(r[2][:60] for r in nccl) or 'no NCCL kernel'}); "
+            f"host {wall / prof_steps * 1e3:.3f} ms a step")
+
+        # Host time of a step's three calls, as the run makes them, each
+        # timed alone on the host clock (no synchronise inside the loop).
+        n = min(200, N // BATCH)
+        v_steps, m_steps = V[:n * BATCH].view(n, BATCH, V_DIM), mask[:n * BATCH].view(n, BATCH)
+        stats = cd_gibbs_dp.stats_launcher(params, v_steps, m_steps, 5, K, 0, 0,
+                                           cd_gibbs_dp.workspace(BATCH, V_DIM, H_DIM, dev))
+        apply = cd_gibbs_dp.apply_launcher(params, LR, torch.zeros(n, device=dev))
+        group = mesh.get_group("data")
+        host = np.zeros(3)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for t in range(n):
+            t0 = time.perf_counter()
+            buf = stats(t, t)
+            t1 = time.perf_counter()
+            dist.all_reduce(buf, group=group)
+            t2 = time.perf_counter()
+            apply(buf, t)
+            host += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        enqueued = time.perf_counter() - start
+        torch.cuda.synchronize()
+        done = time.perf_counter() - start
+        host_us = host / n * 1e6
+        log(f"host a step over {n} steps: stats launch {host_us[0]:.1f} us, "
+            f"all_reduce {host_us[1]:.1f} us, apply launch {host_us[2]:.1f} us "
+            f"(loop {enqueued / n * 1e6:.1f} us a step to enqueue, "
+            f"{done / n * 1e6:.1f} us a step to finish)")
+    finally:
+        dist.destroy_process_group()
+
+    # The step kernels alone at the path's shape (W = 1: 128 rows), cold.
+    step_v, step_m = V[:BATCH], torch.ones(BATCH, device=dev)
+    work = cd_gibbs_dp.workspace(BATCH, V_DIM, H_DIM, dev)
+    one = torch.zeros(1, device=dev)
+
+    def step(stats, apply, **kw):
+        buf = stats(params, step_v, step_m, 7, 0, K, 0, 0, **kw)
+        apply(params, buf, LR, one, 0)
+
+    kernels = lambda: step(*DP_STEP_KERNELS, work=work)  # noqa: E731
+    plain = lambda: step(cd_gibbs_dp.cd_dp_stats_torch,  # noqa: E731
+                         cd_gibbs_dp.cd_dp_apply_torch)
+    kernels()
+    plain()
+    ms = timed_cold_ms(kernels, 20)
+    stats_ms = timed_cold_ms(lambda: DP_STEP_KERNELS[0](
+        params, step_v, step_m, 7, 0, K, 0, 0, work=work), 20)
+    plain_ms = timed_ms(plain, 5)
+
+    flops = (2 * K + 3) * 2 * BATCH * V_DIM * H_DIM
+    nbytes = 4 * (BATCH * V_DIM + BATCH + 2 * (V_DIM * H_DIM + V_DIM + H_DIM) + 1)
+    peak_f32, _, peak_bw = peaks(name)
+    # A rank's step also moves 2(W-1)/W of the payload over NVLink: nothing
+    # at W = 1, the world this card runs.
+    payload = 4 * cd_gibbs_dp.payload_size(V_DIM, H_DIM)
+    bound_flops_ms, bound_bytes_ms = flops / peak_f32 * 1e3, nbytes / peak_bw * 1e3
+    bound_ms = max(bound_flops_ms, bound_bytes_ms)
+    log(f"cd_gibbs_dp step at W 1 ({BATCH} rows, {V_DIM}x{H_DIM}): stats + apply "
+        f"{ms:.4f} ms cold (stats alone {stats_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.6f} ms ({flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB, "
+        f"payload {payload} bytes: {2 * (DP_WORLD - 1) / DP_WORLD * payload / NVLINK_BW * 1e3:.6f} ms "
+        f"on NVLink at W 4)")
+    return {
+        "name": "cd_gibbs_dp",
+        "route": "cuda",
+        "source": "ku_torch/csrc/cd_gibbs_dp.cu",
+        "replaces": "ku/pallas/cd_gibbs.py:310",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "path_ms": stats_path + apply_path,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
+        # No single PyTorch call computes a CD step; the all-reduce's time is
+        # logged above.
         "library_ms": None,
     }
 
@@ -1954,8 +2238,9 @@ def main() -> int:
 
     # 2. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    specs = [(cd_gibbs.SOURCE, cd_gibbs.NAME), (fa.SOURCE, fa.NAME),
-             (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME), (sa.SOURCE, sa.NAME)]
+    specs = [(cd_gibbs.SOURCE, cd_gibbs.NAME), (cd_gibbs_dp.SOURCE, cd_gibbs_dp.NAME),
+             (fa.SOURCE, fa.NAME), (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME),
+             (sa.SOURCE, sa.NAME)]
     built = _build.build_many(specs)
     log(f"build: {', '.join(lib.name for lib, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1964,9 +2249,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {lib_name}: {line.strip()}")
     log(f"cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
-        f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks")
+        f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks; kernel #2's at "
+        f"{BATCH} rows: {cd_gibbs_dp.grid_size(BATCH, V_DIM, H_DIM)}, at "
+        f"{BATCH // DP_WORLD}: {cd_gibbs_dp.grid_size(BATCH // DP_WORLD, V_DIM, H_DIM)}")
 
-    kernels = [rbm_path(dev, name)]
+    rbm_entry, V, fitted, kernel_one_ms = rbm_path(dev, name)
+    kernels = [rbm_entry, dp_path(dev, name, V, fitted, kernel_one_ms)]
+    del V, fitted
     kernels += serving_path(dev, name)
     torch.cuda.empty_cache()  # the serving models are gone with serving_path
     kernels += training_path(dev, name)

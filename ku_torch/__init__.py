@@ -2,7 +2,10 @@
 
 So far it holds the RBM / DBN trainer (:mod:`ku_torch.ebm`), whose CD-k run
 is one launch of a hand-written Hopper kernel
-(:mod:`ku_torch.kernels.cd_gibbs`); the attention, transformer and serving
+(:mod:`ku_torch.kernels.cd_gibbs`), and whose data-parallel run over a
+``torch.distributed`` mesh (:mod:`ku_torch.dist`) takes each step through
+two hand-written step kernels with an all-reduce between them
+(:mod:`ku_torch.kernels.cd_gibbs_dp`); the attention, transformer and serving
 stack (:mod:`ku_torch.nn`: ``MultiHeadAttention`` with dense, paged and
 int8 KV caches, ``Transformer``, the position encodings, ``generate``, the
 ``ContinuousBatcher`` over a dense cache or a page pool), whose prefill and
@@ -31,6 +34,7 @@ from ku_torch.utility import (
     tree_from_state_dict,
 )
 
+from ku_torch import dist as dist
 from ku_torch import ebm as ebm
 from ku_torch import engine_ext as engine_ext
 from ku_torch import kernels as kernels

@@ -88,17 +88,24 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def philox_uniforms(seed: int, step: int, n_streams: int, rows: int,
-                    cols: int, device="cpu") -> torch.Tensor:
+                    cols: int, device="cpu", row0: int = 0) -> torch.Tensor:
     """Uniforms in [0, 1) of shape (n_streams, rows, cols), the draws the
-    CD kernel makes at flat step ``step``.
+    CD kernels make at flat step ``step`` for rows ``row0 .. row0 + rows - 1``
+    of the step's global batch.
 
     Key = (seed, step). The uniform of (stream, row, col) is word
-    ``col % 4`` of Philox on counter (col // 4, row, stream, 0).
+    ``col % 4`` of Philox on counter (col // 4, row, stream, 0). Only the
+    row moves between ranks: in a data-parallel run rank r draws, for its
+    rows ``r·lb ..``, exactly what a single-device run draws for the same
+    rows, at any world size. (``ku`` seeds each device apart instead, with
+    ``seed + step·n_dev + my_id``; the TPU's PRNG and Philox cannot give the
+    same bits anyway, so the distribution is the same and the streams are
+    not.)
     """
     quads = -(-cols // 4)
     dev = torch.device(device)
     c0 = torch.arange(quads, dtype=torch.int64, device=dev).view(1, 1, quads)
-    c1 = torch.arange(rows, dtype=torch.int64, device=dev).view(1, rows, 1)
+    c1 = torch.arange(row0, row0 + rows, dtype=torch.int64, device=dev).view(1, rows, 1)
     c2 = torch.arange(n_streams, dtype=torch.int64, device=dev).view(
         n_streams, 1, 1)
     c3 = torch.zeros((), dtype=torch.int64, device=dev)

@@ -25,6 +25,15 @@ differ from ``ku``'s threefry draws (same distributions).
 kernel's plain version on the CPU. ``hps["backend"] = "scan"`` asks for the
 per-step loop :func:`cd_epoch_scan` instead; ``"cuda"`` (or ``"pallas"`` in
 an old conf) asks for the kernel, and raises off the GPU.
+
+``RBM.fit(V, mesh=...)`` trains data-parallel over a
+:func:`ku_torch.dist.make_mesh` mesh, called on every rank with the whole
+``V``: each batch's rows split over the ranks, the statistics all-reduced
+each step. It routes as ``ku`` does: with the default, ``"cuda"`` or
+``"pallas"`` backend and a batch that divides over the ranks, the
+data-parallel step kernels (:func:`ku_torch.kernels.cd_gibbs_dp.cd_train_dp`;
+their plain versions on the CPU); otherwise the per-step loop
+:func:`ku_torch.dist.cd_epoch_dp`.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ from torch import nn
 
 from ku_torch.core.rng import SeedSeq
 from ku_torch.utility import load_model_jh5, params_from_numpy, save_model_jh5
-from ku_torch.kernels import cd_gibbs
+from ku_torch.dist.mesh import axis_info, cd_epoch_dp
+from ku_torch.kernels import cd_gibbs, cd_gibbs_dp
 from ku_torch.kernels.cd_gibbs import (
     MODE_COMPLEX,
     MODE_VISIBLE_BERNOULLI,
@@ -311,9 +321,10 @@ class RBM:
         if self.params is None:
             self.build((v.shape if hasattr(v, "shape") else np.shape(v))[-1])
 
-    def _to_internal(self, v) -> torch.Tensor:
+    def _to_internal(self, v, move: bool = True) -> torch.Tensor:
         """Public (maybe complex) visible array → float32 tensor on the
-        device, stacked-real in complex mode."""
+        device (where it is, unless ``move``), stacked-real in complex
+        mode."""
         if self.mode == MODE_COMPLEX:
             v = complex_to_stacked(v)
             if self.params is not None and (
@@ -323,7 +334,7 @@ class RBM:
                     f"or stacked-real of dim {2 * self.input_dim}, got {tuple(v.shape)}")
         elif not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.asarray(v, np.float32))
-        return v.to(device=self.device, dtype=torch.float32)
+        return v.to(device=self.device if move else v.device, dtype=torch.float32)
 
     # -- inference surface -------------------------------------------------
 
@@ -368,9 +379,12 @@ class RBM:
     # -- training ----------------------------------------------------------
 
     def fit(self, V, verbose: int = 1, mesh=None):
-        """Train with CD-k: on a GPU the whole run is one kernel launch."""
-        if mesh is not None:
-            raise NotImplementedError("data-parallel fit (mesh=) is not ported yet")
+        """Train with CD-k: on a GPU the whole run is one kernel launch.
+
+        ``mesh``: a :func:`ku_torch.dist.make_mesh` mesh with a ``"data"``
+        dimension, for data-parallel training (see the module docstring);
+        every rank calls ``fit`` with the whole ``V`` and moves only its own
+        rows to its device."""
         backend = self.hps.get("backend")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {_BACKENDS}")
@@ -378,7 +392,7 @@ class RBM:
             raise ValueError(f"backend {backend!r} runs the CUDA kernel, but "
                              f"this RBM is on {self.device}")
         self._ensure_built(V)
-        V = self._to_internal(V)
+        V = self._to_internal(V, move=mesh is None)
         batch_size = int(self.hps["batch_size"])
         epochs = int(self.hps["epochs"])
         lr = float(self.hps["lr"])
@@ -395,7 +409,20 @@ class RBM:
         mask = torch.zeros((padded,), dtype=torch.float32, device=V.device)
         mask[:n] = 1.0
 
-        if self.hps.get("persistent"):
+        if mesh is not None:
+            _, world, _ = axis_info(mesh)
+            if backend != "scan" and batch_size % world == 0:
+                self.params, scores = cd_gibbs_dp.cd_train_dp(
+                    mesh, self.params, v_all, mask, self._seeds.seed32(), lr, k,
+                    self.mode, batch_size, epochs)
+                self._report_epochs(verbose, epochs, scores)
+            else:
+                for e in range(epochs):
+                    self.params, scores = cd_epoch_dp(
+                        mesh, self.params, v_all, mask, self._generator(), lr,
+                        k, self.mode, batch_size)
+                    self._report(verbose, e, epochs, scores)
+        elif self.hps.get("persistent"):
             chain = v_all[:batch_size].clone()
             for e in range(epochs):
                 self.params, scores, chain = cd_epoch_scan_pcd(
@@ -413,9 +440,7 @@ class RBM:
             self.params, scores = train(self.params, v_all, mask,
                                         self._seeds.seed32(), lr, k, self.mode,
                                         batch_size, epochs)
-            if verbose:
-                for e, s in enumerate(scores.view(epochs, -1).mean(dim=1).tolist()):
-                    print(f"{e + 1}/{epochs} epochs, score: {s:f}")
+            self._report_epochs(verbose, epochs, scores)
         self.last_scores = scores
         return self
 
@@ -423,6 +448,13 @@ class RBM:
     def _report(verbose, e, epochs, scores):
         if verbose:
             print(f"{e + 1}/{epochs} epochs, score: {float(scores.mean()):f}")
+
+    @staticmethod
+    def _report_epochs(verbose, epochs, scores):
+        """Per-epoch means of a whole run's (epochs·steps,) scores."""
+        if verbose:
+            for e, s in enumerate(scores.view(epochs, -1).mean(dim=1).tolist()):
+                print(f"{e + 1}/{epochs} epochs, score: {s:f}")
 
     # -- persistence -------------------------------------------------------
 

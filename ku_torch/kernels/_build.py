@@ -3,15 +3,16 @@
 Each kernel is one ``.cu`` file with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` at first use into ``ku_torch/_build`` (git-ignored)
 and loaded with ``ctypes`` by its wrapper. The library's file name carries
-the source's hash, so an edited source is rebuilt and an unchanged one is
-not. Every kernel keeps its own library, so a failed build names its own
-source.
+the hash of the source and of the headers it includes, so an edited
+source or header is rebuilt and an unchanged one is not. Every kernel
+keeps its own library, so a failed build names its own source.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,8 +32,14 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, name: str) -> Path:
-    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path, named by the hash of the source and of the
+    headers it includes from its own directory (``#include "x.cuh"``)."""
+    source = Path(source)
+    text = source.read_bytes()
+    h = hashlib.sha256(text)
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        h.update((source.parent / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:

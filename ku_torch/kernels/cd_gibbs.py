@@ -144,22 +144,12 @@ def _softplus30(a):
     return torch.where(a > 30.0, a, torch.log1p(torch.exp(a.clamp_max(30.0))))
 
 
-def cd_train_torch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
-                   uniforms=None):
-    """The plain version of :func:`cd_train_cuda`: the same function as a
-    Python loop of torch ops, on tensors of any device.
-
-    ``uniforms(step, n_streams, rows, cols)`` supplies the step's uniform
-    draws, stream by stream (see ``ku_torch/csrc/cd_gibbs.cu``); by default
-    the kernel's Philox stream for ``seed``.
-    """
-    w, bh, bv, v_all, mask = _check(params, v_all, mask, k, mode, batch_size,
-                                    epochs)
-    if uniforms is None:
-        uniforms = functools.partial(philox_uniforms, int(seed),
-                                     device=v_all.device)
-    b = batch_size
-    steps = v_all.shape[0] // b
+def step_sums_torch(w, bh, bv, v_pos, m, u, k, mode):
+    """One CD-k step's sums over the rows of ``v_pos`` on the pre-update
+    parameters, in torch ops: (d_w, d_bh, d_bv, sum of score terms, sum of
+    the mask), each sum raw over the rows, with ``m`` the (rows, 1) row mask
+    and ``u`` the step's (3k + 1, rows, max(V, H)) uniforms. The plain
+    versions of both CD kernels take their steps from it."""
     v_dim, h_dim = w.shape
     complex_mode = mode == MODE_COMPLEX
 
@@ -173,41 +163,64 @@ def cd_train_torch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
             return ((v - bv) ** 2).sum(dim=1) - sp
         return -((v * bv).sum(dim=1) + sp)
 
+    act_pos = act(v_pos)
+    p = (torch.relu(act_pos) if mode == MODE_VISIBLE_GAUSSIAN
+         else torch.sigmoid(act_pos))
+    h_pos = (u[0, :, :h_dim] < p).to(w.dtype) * m
+    h = h_pos
+    for i in range(k):
+        stat = h @ w.T + bv
+        if mode == MODE_VISIBLE_BERNOULLI:
+            v_neg = (u[1 + 3 * i, :, :v_dim] < torch.sigmoid(stat)).to(w.dtype)
+        else:
+            z = box_muller(u[1 + 3 * i, :, :v_dim], u[2 + 3 * i, :, :v_dim])
+            v_neg = stat + (_INV_SQRT2 * z if complex_mode else z)
+        v_neg = v_neg * m
+        act_neg = act(v_neg)
+        if i == 0:
+            fe_neg = free_energy(v_neg, act_neg)
+        # Negative-phase statistics use the sigmoid in every mode; only
+        # Gaussian-mode sampling keeps the relu.
+        h_neg = torch.sigmoid(act_neg) * m
+        if i < k - 1:
+            p_h = (torch.relu(act_neg) * m if mode == MODE_VISIBLE_GAUSSIAN
+                   else h_neg)
+            h = (u[3 + 3 * i, :, :h_dim] < p_h).to(w.dtype)
+    diff = (free_energy(v_pos, act_pos) - fe_neg).abs() * m[:, 0]
+    v_pos_m = v_pos * m
+    return (v_pos_m.T @ h_pos - v_neg.T @ h_neg,
+            h_pos.sum(dim=0) - h_neg.sum(dim=0),
+            v_pos_m.sum(dim=0) - v_neg.sum(dim=0),
+            diff.sum(), m.sum())
+
+
+def cd_train_torch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
+                   uniforms=None):
+    """The plain version of :func:`cd_train_cuda`: the same function as a
+    Python loop of torch ops, on tensors of any device.
+
+    ``uniforms(step, n_streams, rows, cols)`` supplies the step's uniform
+    draws, stream by stream (see ``ku_torch/csrc/cd_gibbs_chain.cuh``); by
+    default the kernel's Philox stream for ``seed``.
+    """
+    w, bh, bv, v_all, mask = _check(params, v_all, mask, k, mode, batch_size,
+                                    epochs)
+    if uniforms is None:
+        uniforms = functools.partial(philox_uniforms, int(seed),
+                                     device=v_all.device)
+    b = batch_size
+    steps = v_all.shape[0] // b
+    cols = max(w.shape)
     scores = torch.empty(steps * epochs, dtype=w.dtype, device=w.device)
     for t in range(steps * epochs):
         s = t % steps
-        v_pos = v_all[s * b:(s + 1) * b]
-        m = mask[s * b:(s + 1) * b, None]
-        u = uniforms(t, 3 * k + 1, b, max(v_dim, h_dim))
-        act_pos = act(v_pos)
-        p = (torch.relu(act_pos) if mode == MODE_VISIBLE_GAUSSIAN
-             else torch.sigmoid(act_pos))
-        h_pos = (u[0, :, :h_dim] < p).to(w.dtype) * m
-        h = h_pos
-        for i in range(k):
-            stat = h @ w.T + bv
-            if mode == MODE_VISIBLE_BERNOULLI:
-                v_neg = (u[1 + 3 * i, :, :v_dim] < torch.sigmoid(stat)).to(w.dtype)
-            else:
-                z = box_muller(u[1 + 3 * i, :, :v_dim], u[2 + 3 * i, :, :v_dim])
-                v_neg = stat + (_INV_SQRT2 * z if complex_mode else z)
-            v_neg = v_neg * m
-            act_neg = act(v_neg)
-            if i == 0:
-                fe_neg = free_energy(v_neg, act_neg)
-            # Negative-phase statistics use the sigmoid in every mode; only
-            # Gaussian-mode sampling keeps the relu.
-            h_neg = torch.sigmoid(act_neg) * m
-            if i < k - 1:
-                p_h = (torch.relu(act_neg) * m if mode == MODE_VISIBLE_GAUSSIAN
-                       else h_neg)
-                h = (u[3 + 3 * i, :, :h_dim] < p_h).to(w.dtype)
-        diff = (free_energy(v_pos, act_pos) - fe_neg).abs() * m[:, 0]
-        scores[t] = diff.sum() / m.sum().clamp_min(1.0)
-        v_pos_m = v_pos * m
-        w = w + lr * (v_pos_m.T @ h_pos - v_neg.T @ h_neg)
-        bh = bh + lr * (h_pos.sum(dim=0) - h_neg.sum(dim=0))
-        bv = bv + lr * (v_pos_m.sum(dim=0) - v_neg.sum(dim=0))
+        d_w, d_bh, d_bv, diff_sum, m_sum = step_sums_torch(
+            w, bh, bv, v_all[s * b:(s + 1) * b], mask[s * b:(s + 1) * b, None],
+            uniforms(t, 3 * k + 1, b, cols), k, mode)
+        scores[t] = diff_sum / m_sum.clamp_min(1.0)
+        w = w + lr * d_w
+        bh = bh + lr * d_bh
+        bv = bv + lr * d_bv
     return {"rbm_weight": w, "hidden_bias": bh, "visible_bias": bv}, scores
 
 

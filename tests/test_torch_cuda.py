@@ -1,7 +1,9 @@
 """ku_torch's kernels on the card against their plain versions: the CD
 kernel here, the serving kernels (flash forward, flash decoding), the
-training ones (the flash backward, a Trainer step) and the block-sparse
-ones (forward, dq, dk/dv, a Trainer step under a block mask) below.
+training ones (the flash backward, a Trainer step), the block-sparse
+ones (forward, dq, dk/dv, a Trainer step under a block mask) and the
+data-parallel CD step kernels (with RBM.fit(mesh=) in an NCCL world of one
+process) below.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -725,3 +727,117 @@ def test_train_step_under_a_block_mask_goes_through_the_sparse_kernels(device, m
     assert abs(loss - loss_p) <= 1e-4 * abs(loss_p)
     for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
         torch.testing.assert_close(p.grad, q.grad, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel CD-k (kernel #2): the statistics and apply kernels against
+# their plain versions, at world size 1 and at 4 ranks emulated in one
+# process (their buffers summed in rank order), with kernel #1's tolerances
+# above; world size 1 against kernel #1 bit for bit (the same device code,
+# the same sums); RBM.fit(mesh=) in an NCCL world of one process.
+# ---------------------------------------------------------------------------
+
+import torch.distributed as dist  # noqa: E402
+
+from ku_torch.dist import make_mesh  # noqa: E402
+from ku_torch.ebm import DBN  # noqa: E402
+from ku_torch.kernels import cd_gibbs_dp  # noqa: E402
+
+DP_SHAPE = (37, 45, 40, 3)  # V, H, batch, steps: 10 rows a rank at W = 4
+
+
+def _dp_compare(device, world, k, mode, saturated, epochs, p_tol, s_tol):
+    v_dim, h_dim, batch, steps = DP_SHAPE
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, mode,
+                                   saturated)
+    args = (world, params, v_all, mask, 1234, 1e-3, k, mode, batch, epochs)
+    p_k, s_k = cd_gibbs_dp.cd_train_dp_emulated(*args)
+    torch.cuda.synchronize()
+    p_p, s_p = cd_gibbs_dp.cd_train_dp_emulated(*args, plain=True)
+    for name in NAMES:
+        torch.testing.assert_close(p_k[name], p_p[name], rtol=p_tol[0],
+                                   atol=p_tol[1], msg=name)
+    torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1])
+    assert torch.isfinite(s_k).all()
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("k", [1, 2])
+def test_dp_kernels_match_plain_when_forced(device, k, world):
+    _dp_compare(device, world, k, cd_gibbs.MODE_VISIBLE_BERNOULLI, True, 2,
+                (1e-5, 1e-6), (1e-5, 1e-6))
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_dp_kernels_match_plain_with_shared_draws(device, mode, world):
+    _dp_compare(device, world, 1, mode, False, 1, (1e-5, 1e-5), (1e-4, 1e-4))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_dp_kernels_at_world_one_equal_kernel_one(device, mode):
+    v_dim, h_dim, batch, steps = DP_SHAPE
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, mode, False)
+    args = (params, v_all, mask, 1234, 1e-3, 2, mode, batch, 2)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args)
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args)
+    torch.cuda.synchronize()
+    for name in NAMES:
+        assert torch.equal(p_dp[name], p_1[name]), name
+    assert torch.equal(s_dp, s_1)
+
+
+@pytest.mark.parametrize("saturated", [True, False])
+def test_dp_kernels_at_world_four_match_kernel_one(device, saturated):
+    v_dim, h_dim, batch, steps = DP_SHAPE
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, 0, saturated)
+    args = (params, v_all, mask, 1234, 1e-3, 1, 0, batch, 2 if saturated else 1)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(4, *args)
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args)
+    torch.cuda.synchronize()
+    for name in NAMES:
+        torch.testing.assert_close(p_dp[name], p_1[name], rtol=1e-5, atol=1e-5,
+                                   msg=name)
+    torch.testing.assert_close(s_dp, s_1, rtol=1e-4, atol=1e-4)
+
+
+def test_dp_wrappers_reject_what_the_kernels_do_not_take(device):
+    params, v_all, mask = _problem(device, 8, 4, 4, 2, 0, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cd_gibbs_dp.cd_dp_stats_cuda(params, v_all[:4].cpu(), mask[:4], 0, 0,
+                                     1, 0, 0)
+    with pytest.raises(ValueError, match="float32"):
+        cd_gibbs_dp.cd_dp_stats_cuda(params, v_all[:4].double(), mask[:4], 0,
+                                     0, 1, 0, 0)
+    buf = torch.zeros(cd_gibbs_dp.payload_size(8, 4) - 1, device=device)
+    with pytest.raises(ValueError, match="does not fit"):
+        cd_gibbs_dp.cd_dp_apply_cuda(params, buf, 1e-3, torch.zeros(2, device=device), 0)
+
+
+def test_rbm_fit_with_a_mesh_launches_the_step_kernels(device):
+    rng = np.random.default_rng(1)
+    data = (rng.random((300, 50)) < 0.2).astype(np.float32)
+    hps = {"lr": 1e-2, "batch_size": 32, "epochs": 3}
+    mesh = make_mesh()
+    try:
+        before = (cd_gibbs.cd_train_cuda.launches, cd_gibbs_dp.cd_dp_stats_cuda.launches,
+                  cd_gibbs_dp.cd_dp_apply_cuda.launches)
+        rbm = RBM(hps, 16, seed=0).fit(data, verbose=0, mesh=mesh)
+        dbn = DBN()
+        dbn.add_stack(RBM({**hps, "epochs": 1}, 16, seed=1))
+        dbn.add_stack(RBM({**hps, "epochs": 1}, 8, seed=2))
+        dbn.fit(data, verbose=0, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    steps = 3 * 10 + 2 * 10
+    assert cd_gibbs.cd_train_cuda.launches == before[0]
+    assert cd_gibbs_dp.cd_dp_stats_cuda.launches == before[1] + steps
+    assert cd_gibbs_dp.cd_dp_apply_cuda.launches == before[2] + steps
+    assert rbm.last_scores.shape == (3 * 10,)
+    assert torch.isfinite(rbm.last_scores).all()
+    assert dbn.transform(data).shape == (300, 8)
+    single = RBM(hps, 16, seed=0).fit(data, verbose=0)
+    for name in NAMES:
+        assert torch.equal(rbm.params[name], single.params[name]), name
+    assert torch.equal(rbm.last_scores, single.last_scores)

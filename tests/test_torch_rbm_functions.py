@@ -204,6 +204,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_mesh_is_not_ported():
+    # fit(mesh=) is ported (tests/test_torch_cd_gibbs_dp.py); what this
+    # checks now is that a mesh that is not a DeviceMesh is refused before
+    # any training.
     rbm = pt_rbm.RBM({"lr": 1e-3, "batch_size": 4, "epochs": 1}, 3, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         rbm.fit(np.zeros((8, 5), np.float32), mesh=object())
+    assert rbm.last_scores is None
