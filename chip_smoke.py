@@ -10,7 +10,7 @@ Phases (any failure raises and the script exits non-zero):
 1. Device: CUDA must be present; print the card's name and power limit.
 2. Build: compile the six kernel sources of ku_torch/csrc with nvcc, one
    process per source, all started together; print their register and
-   spill lines.
+   spill lines (kept for phase 19).
 3. CD kernel against its plain version on the card, same inputs:
    - saturated biases (every draw certain), Bernoulli, k = 1 and 2, ragged
      last batch, 2 epochs: params and scores rtol 1e-5 / atol 1e-5;
@@ -154,15 +154,20 @@ Phases (any failure raises and the script exits non-zero):
    call runs once untimed first.
 17. (After the training model is freed.) The block-sparse kernels
    (forward, dq, dk/dv) against their plain versions on the card, the
-   backward on the forward kernel's o, lse and delta: f32 rtol/atol 1e-4;
-   bf16 at phase 6's limits for the forward and phase 14's for the
-   backward. ku's four pattern primitives (tests/test_sparse_attention.py:
-   88-94) at blocks of 16, a causal block pattern, the non-causal cross
-   pattern whose unattended key blocks hold NaN (outputs finite, their
-   dk/dv exactly 0), rows with no live key (o, dq 0), blocks of 64, of
-   128 x 64, and the LM's 512 x 512 mask; G 1 and 4, D 64 and 128, Dv != D
-   both ways, dO through a transposed view; in bf16 also ku's sparse gate
-   (bench.py:217-243: B 1, H 4, N 65,536, D 64, window 4,096 + 128 sinks).
+   backward on the forward kernel's o, lse and delta: every case in f32
+   through the CUDA-core kernels (rtol/atol 1e-4) and in bf16 through the
+   tensor-core ones (phase 6's limits for the forward and phase 14's for
+   the backward), each launch's route checked. ku's four pattern
+   primitives (tests/test_sparse_attention.py:88-94) at blocks of 16, a
+   causal block pattern, the non-causal cross pattern whose unattended key
+   blocks hold NaN (outputs finite, their dk/dv exactly 0), rows with no
+   live key (o, dq 0), blocks of 64, of 128 x 64, and the LM's 512 x 512
+   mask; G 1 and 4, D 64 and 128, Dv != D both ways, D 40 with Dv 24 and D
+   36 with Dv 12 (widths the tensor-core tiles zero-fill), dO through a
+   transposed view, q with a stride of 2 along D and q 2 bytes off 16
+   (both copied by the wrapper for the tensor-core kernels); in bf16 also
+   ku's sparse gate (bench.py:217-243: B 1, H 4, N 65,536, D 64, window
+   4,096 + 128 sinks).
 18. The same LM trained under a block mask through Trainer: every block
    called with the mask, which routes both attention sublayers through
    the sparse kernels. f32 (TF32 off), B 1 x 2,048, blocks of 128, window
@@ -175,16 +180,22 @@ Phases (any failure raises and the script exits non-zero):
    ones, losses finite, each step exactly 32 launches of each sparse
    kernel and none of the flash or decode kernels; `predict` launches the
    sparse forward only. Peak memory of each part.
-19. Sparse timing: train tokens/s from the median of the timed steps (CUDA
-   events); a torch.profiler window over one bf16 step (each sparse
-   kernel's `path_ms`); each sparse kernel alone at the LM's shape, cold
-   in L2, against its plain version and its bound (4·D operations a kept
-   pair for the forward, 6·D for dq, 8·D for dk/dv, from the mask's exact
-   kept-pair count, at the bf16 tensor-core peak, or the bytes at the
-   memory rate) and `library_ms`: flex_attention, compiled, over a block
-   mask from the same mask_mod (forward; forward + backward minus
-   forward); then ku's sparse gate: the sparse kernels against the dense
-   causal flash forward at 64k (ku's sparse_vs_causal_speedup).
+19. Sparse timing: each sparse instantiation's registers and spills (from
+   phase 2's build output) and its count of tensor-core instructions
+   (HMMA / HGMMA in cuobjdump -sass of the built library; each of the six
+   bf16 instantiations, D up to 64 and 128, must have some); train tokens/s from the median of the
+   timed steps (CUDA events); a torch.profiler window over one bf16 step
+   (each tensor-core sparse kernel's `path_ms`; no f32 sparse kernel may
+   run); each sparse kernel alone at the LM's shape in bf16 (the
+   tensor-core route, checked), cold in L2, against its plain version and
+   its bound (4·D operations a kept pair for the forward, 6·D for dq, 8·D
+   for dk/dv, from the mask's exact kept-pair count, at the bf16
+   tensor-core peak, or the bytes at the memory rate) and `library_ms`:
+   flex_attention, compiled, over a block mask from the same mask_mod
+   (forward; forward + backward minus forward); then ku's sparse gate: the
+   sparse kernels against the dense causal flash forward at 64k (ku's
+   sparse_vs_causal_speedup, now a tensor-core kernel against one still on
+   the CUDA cores).
 
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -195,6 +206,8 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -262,6 +275,9 @@ PEAKS = {
     "H100": (67e12, 989e12, 3.35e12),  # SXM
     "H200": (67e12, 989e12, 4.8e12),
 }
+
+
+BUILD_REPORTS = {}  # nvcc's -Xptxas -v output by library name (phase 2)
 
 
 def log(msg):
@@ -1940,15 +1956,34 @@ def gate_mask():
                               window=GATE_WINDOW, global_prefix=SP_SINKS)
 
 
+def q_in_layout(q, layout):
+    """q's values in a layout the tensor-core kernels cannot copy as it is:
+    "strided", every other element of rows twice as wide; "offset", one
+    element into a flat buffer (2 bytes off 16 in bf16)."""
+    if layout == "strided":
+        wide = torch.zeros(*q.shape[:-1], 2 * q.shape[-1], dtype=q.dtype, device=q.device)
+        wide[..., ::2] = q
+        return wide[..., ::2]
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=q.device)
+    out = flat[1:].view(q.shape)
+    out.copy_(q)
+    return out
+
+
 def sparse_case(dev, dtype, b, h, hkv, d, dv, mask, *, poison=False, strided_do=False,
-                amplitude=1.0, seed=0):
+                q_layout=None, amplitude=1.0, seed=0):
     """The three sparse kernels against their plain versions on the same
-    inputs (the backward on the forward kernel's o, lse and delta). With
+    inputs (the backward on the forward kernel's o, lse and delta): bf16
+    through the tensor-core kernels, f32 through the CUDA-core ones. With
     `poison`, the K and V rows of the key blocks no query attends hold NaN:
-    every output must stay finite and their dk, dv be exactly 0. Returns the
-    largest abs difference of (o, dq, dk/dv)."""
+    every output must stay finite and their dk, dv be exactly 0. With
+    `q_layout`, q lies in a layout the wrapper copies for the tensor-core
+    kernels. Returns the largest abs difference of (o, dq, dk/dv)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = (torch.randn(b, h, mask.n, d, generator=g, device=dev) * amplitude).to(dtype)
+    if q_layout:
+        q = q_in_layout(q, q_layout)
+        check(not sa._mma_ready(q), f"q in layout {q_layout} needs no copy")
     k = (torch.randn(b, hkv, mask.kn, d, generator=g, device=dev) * amplitude).to(dtype)
     v = (torch.randn(b, hkv, mask.kn, dv, generator=g, device=dev) * amplitude).to(dtype)
     unattended = torch.from_numpy(mask.qcnt == 0).to(dev).repeat_interleave(mask.block_k)
@@ -1981,11 +2016,15 @@ def sparse_case(dev, dtype, b, h, hkv, d, dv, mask, *, poison=False, strided_do=
               "an unattended key block has dk or dv != 0")
     dead = lse == fa._MASKED  # rows with no live key
     check(bool((o[dead] == 0).all() and (dq[dead] == 0).all()), "a dead row has o or dq != 0")
+    route = sa._route(dtype)
+    check([kn.route for kn in SPARSE_KERNELS] == [route] * 3,
+          f"sparse launches took {[kn.route for kn in SPARSE_KERNELS]}, not {route}")
     diffs = (_max_diff(o, o_p), _max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv_, dv_p)))
-    log(f"  sparse {str(dtype)[6:]} B{b} H{h}/{hkv} N{mask.n} KN{mask.kn} D{d} Dv{dv} blocks "
-        f"{mask.block_q}x{mask.block_k} causal {mask.causal} window {mask.window} sinks "
-        f"{mask.global_prefix} entries {mask.fmap.shape[0]} poison {poison} strided dO "
-        f"{strided_do}, {int(dead.sum())} dead rows: max abs diff o {diffs[0]:.3e}, dq "
+    log(f"  sparse {str(dtype)[6:]} ({route}) B{b} H{h}/{hkv} N{mask.n} KN{mask.kn} D{d} "
+        f"Dv{dv} blocks {mask.block_q}x{mask.block_k} causal {mask.causal} window "
+        f"{mask.window} sinks {mask.global_prefix} entries {mask.fmap.shape[0]} poison "
+        f"{poison} strided dO {strided_do} q layout {q_layout or 'as made'}, "
+        f"{int(dead.sum())} dead rows: max abs diff o {diffs[0]:.3e}, dq "
         f"{diffs[1]:.3e} (largest {float(dq_p.float().abs().max()):.3e}), dk/dv {diffs[2]:.3e}")
     return diffs
 
@@ -2018,6 +2057,17 @@ def sparse_kernels_vs_plain(dev):
                                   global_prefix=70), dict(strided_do=True)),
             (1, 4, 4, 64, 128, M(1024, block_q=128, block_k=64, causal=True, window=300,
                                  global_prefix=40, extra_blocks=((7, 2),)), {}),
+            # Widths that are not multiples of 16, zero-filled in the
+            # tensor-core kernels' tiles; q in layouts the wrapper copies
+            # for them (a stride of 2 along D; 2 bytes off 16; rows 72
+            # bytes apart).
+            (2, 4, 2, 40, 24, M(96, block_q=16, block_k=16, causal=True, window=20,
+                                global_prefix=5), {}),
+            (1, 4, 2, 40, 24, M(512, block_q=128, block_k=64, causal=True, window=200,
+                                global_prefix=70), dict(q_layout="strided")),
+            (1, 2, 1, 64, 64, M(256, block_q=64, block_k=64, causal=True, window=100,
+                                global_prefix=10), dict(q_layout="offset", strided_do=True)),
+            (1, 2, 2, 36, 12, M(128, block_q=64, block_k=64, causal=True), {}),
             # The LM's shape and mask.
             (1, LM_HEADS, LM_KV_HEADS, LM_D // LM_HEADS, LM_D // LM_HEADS, main_mask(),
              dict(strided_do=True)),
@@ -2086,6 +2136,44 @@ def flex_ms(q, k, v, do, scale):
     return fwd_ms, timed_cold_ms(grad, 10) - fwd_ms, out
 
 
+def ptxas_kernels(report):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from nvcc's
+    -Xptxas -v output, one entry per instantiation, named as
+    `sparse_fwd_wgmma_kernel<128>` or `sparse_fwd_kernel<float, 64>`."""
+    out, kernel, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)I(f)?Li(\d+)E", line)
+        if m:
+            kernel = f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m[1]), int(m[2]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m[1])) + spills)
+            kernel = None
+    return out
+
+
+def sass_mma_counts(library):
+    """{instantiation: tensor-core instructions (HMMA, HGMMA) in its SASS},
+    from cuobjdump -sass of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \w*?([a-z][a-z_]*_kernel)I(f)?Li(\d+)E", line)
+        if m:
+            kernel = f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+            counts[kernel] = 0
+        elif kernel and re.search(r"\bH(G)?MMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
 def sparse_training_path(dev, name) -> list:
     """Phases 17-19; returns the entries of the three sparse kernels."""
     errs = sparse_kernels_vs_plain(dev)
@@ -2133,14 +2221,26 @@ def sparse_training_path(dev, name) -> list:
     log(f"sparse predict: logits {logits.shape}, launches (sparse fwd, dq, dkv) "
         f"{train_counts()[5:]}")
 
-    # 19. Where a step's time goes, and each sparse kernel alone.
+    # 19. Each sparse instantiation's registers and spills; where a step's
+    # time goes, and each sparse kernel alone.
+    table = ptxas_kernels(BUILD_REPORTS.get(sa.NAME, ""))
+    check(any("wgmma" in kn for kn, *_ in table), "no ptxas report of the sparse kernels")
+    sass = sass_mma_counts(_build.library_path(sa.SOURCE, sa.NAME))
+    for kn, regs, st, ld in table:
+        log(f"  ptxas {kn}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
+            f"bytes; {sass.get(kn, 'no')} HMMA/HGMMA instructions in its SASS")
+    tensor = {kn: n for kn, n in sass.items() if "_wgmma_" in kn}
+    check(len(tensor) == 6 and all(tensor.values()),
+          f"tensor-core instructions by kernel: {sass}")
     wall, rows, clocks = profiled(lambda: tr.train_step(x, y))
     log_profile("one bf16 sparse train step", wall, rows, clocks)
     check(not any("flash_" in r[2] for r in rows), "a flash kernel ran in the sparse step")
-    names = ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")
+    check(not any(re.search(r"sparse_(fwd|dq|dkv)_kernel", r[2]) for r in rows),
+          "a CUDA-core (f32) sparse kernel ran in the bf16 step")
+    names = ("sparse_fwd_wgmma_kernel", "sparse_dq_wgmma_kernel", "sparse_dkv_wgmma_kernel")
     path = {k: per_launch_ms(rows, k) for k in names}
     attn_us = sum(r[0] for r in rows if "sparse_" in r[2])
-    log(f"profile: sparse kernels {attn_us / 1e3:.3f} ms of "
+    log(f"profile: sparse kernels (tensor cores) {attn_us / 1e3:.3f} ms of "
         f"{sum(r[0] for r in rows) / 1e3:.3f} ms device time; a launch on the path: fwd "
         f"{path[names[0]]:.4f} ms, dq {path[names[1]]:.4f} ms, dk/dv {path[names[2]]:.4f} ms")
     del tr, lm, logits
@@ -2166,13 +2266,16 @@ def sparse_training_path(dev, name) -> list:
              (q, k, v, do, lse, delta), errs[2], 320, lib_bwd_ms)):
         kernel(*args, mask, scale)
         ms = timed_cold_ms(lambda: kernel(*args, mask, scale), 5)
+        route = kernel.route
+        check(route == "mma", f"sparse_{which} at the LM shape took the {route} kernel")
         plain(*args, mask, scale)
         plain_ms = timed_cold_ms(lambda: plain(*args, mask, scale), 3)
         bound_ms, bound_by = sparse_bound(which, 1, LM_HEADS, LM_KV_HEADS, SP_N, SP_N, hd,
                                           hd, pairs, 2, peak_bf16, peak_bw)
-        name_k = f"sparse_{which}_kernel"
+        name_k = f"sparse_{which}_wgmma_kernel"
         log(f"sparse_{which} at B1 H{LM_HEADS}/{LM_KV_HEADS} N{SP_N} D{hd} bf16, "
-            f"{pairs} kept pairs, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{pairs} kept pairs, cold L2: kernel ({route}: bf16 on the tensor cores) "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms ({bound_by}); on the path (profiler) "
             f"{path[name_k]:.4f} ms a launch; flex_attention "
             f"{'forward' if which == 'fwd' else 'backward (fwd+bwd minus fwd)'} {lib:.4f} ms")
@@ -2206,6 +2309,7 @@ def sparse_training_path(dev, name) -> list:
                                                         gscale), 3)
     dkv_ms = timed_cold_ms(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, gmask,
                                                           gscale), 3)
+    routes = [kn.route for kn in SPARSE_KERNELS]
     fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale, causal=True)
     causal_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale,
                                                         causal=True), 2)
@@ -2216,8 +2320,9 @@ def sparse_training_path(dev, name) -> list:
         f"{SP_SINKS} sinks ({gmask.fmap.shape[0]} entries, {1 - gmask.sparsity:.4f} of the "
         f"square, {gpairs} kept pairs), cold L2: sparse fwd {fwd_ms:.4f} ms, dq "
         f"{dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms (bounds {bounds[0]:.5f}, {bounds[1]:.5f}, "
-        f"{bounds[2]:.5f} ms); dense causal flash forward {causal_ms:.4f} ms: "
-        f"sparse_vs_causal_speedup {causal_ms / fwd_ms:.3f}")
+        f"{bounds[2]:.5f} ms; routes {routes}); dense causal flash forward {causal_ms:.4f} ms: "
+        f"sparse_vs_causal_speedup {causal_ms / fwd_ms:.3f} (a bf16 tensor-core sparse "
+        f"forward against the flash forward, still on the CUDA cores)")
     log(f"max abs diff kernel vs plain: sparse o {errs[0]:.3e}, dq {errs[1]:.3e}, dk/dv "
         f"{errs[2]:.3e}; f32 LM gradients under the mask through the kernels vs the plain "
         f"versions {grad_err:.3e} of each tensor's largest entry")
@@ -2245,6 +2350,7 @@ def main() -> int:
     log(f"build: {', '.join(lib.name for lib, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for (_, lib_name), (_, report) in zip(specs, built):
+        BUILD_REPORTS[lib_name] = report
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {lib_name}: {line.strip()}")

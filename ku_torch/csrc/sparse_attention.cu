@@ -7,7 +7,9 @@
 //
 // Contract (ku's layout):
 //   q (B, H, N, D), k (B, Hkv, KN, D), v (B, Hkv, KN, Dv), dout (B, H, N, Dv):
-//     f32 or bf16, any strides; query head j reads KV head j / (H / Hkv).
+//     f32 with any strides, or bf16 whose rows can be copied 16 bytes at a
+//     time (rows_aligned; the wrapper copies any other); D, Dv <= 128;
+//     query head j reads KV head j / (H / Hkv).
 //   map (E, 5) int32, ku's flat map [q_block, k_block, flag, first, last]:
 //     fmap (grouped by query block) for the forward and dq, tmap (grouped by
 //     key block) for dk / dv; ptr (nqb + 1) or (nkb + 1) int32: where each
@@ -38,14 +40,43 @@
 // 0.13 ms at the 989 TFLOP/s bf16 tensor-core peak; dq 6 * D, 0.19 ms;
 // dk / dv 8 * D, 0.26 ms. Each moves about 0.1 GB (q, k, v, dout, lse,
 // delta once, its outputs once), 0.03 ms at 3.35 TB/s: operations bound all
-// three. These kernels do their products in f32 on the CUDA cores (no
-// tensor cores yet), so in practice the f32 FMA and shared-memory rate
-// bound them, far above either.
+// three.
 //
-// Design: flash_fwd.cu's and flash_bwd.cu's 256-thread blocks and 64 x 64
-// f32 tiles in shared memory, with the TPU's sequential map axis a loop
-// inside the block over its run of the map. A TPU block of 512 rows in f32
-// is 256 KB at D = 128, past an SM's 227 KB, so a CUDA block takes a 64-row
+// Two routes, chosen by dtype at the C entry; nothing falls back from one
+// to the other.
+// - bf16: the tensor-core kernels (sparse_{fwd,dq,dkv}_wgmma_kernel, over
+//   attn_mma.cuh). Every product is a warpgroup wgmma (bf16 in, f32 sums):
+//   S = Q K^T and dP = dO V^T (and their transposes in dk / dv) with both
+//   operands read from shared memory, O += P V, dQ += dS K, dV += P^T dO
+//   and dK += dS^T Q with A in registers and B read transposed. Tiles sit
+//   in wgmma's 128-byte swizzled layout, filled by 16-byte cp.async copies
+//   that zero-fill rows past the tile's end and columns past the head's
+//   width, so that any D, Dv <= 128 and any block size work and a NaN
+//   outside the tile is never read; the walked tiles (K and V, or Q, dO,
+//   lse and delta) are double-buffered, the next one copied during this
+//   one's products. Scores stay in the accumulator fragments: the online
+//   softmax (forward), or p and ds (backward), work on them with quad
+//   shuffles, and p or ds, rounded to bf16 in registers, is the A operand
+//   of the next product (FlashAttention-2's scheme). A sub-tile whose
+//   corners pass every clause of the mask tests no pair; otherwise a
+//   bitmask of kept pairs is built once and a masked pair's exp takes -inf
+//   (no branch around it). Forward and dq: one warpgroup, two blocks an
+//   SM; dk / dv: two warpgroups, one block an SM. Each group of products
+//   is waited for before its results are used (no overlap of products with
+//   the softmax inside a block; two blocks an SM overlap each other). What
+//   bounds them is not measured apart (no ncu on that machine); their times
+//   in PERF.md are 4-5x the bounds.
+// - f32: the CUDA-core kernels (sparse_{fwd,dq,dkv}_kernel): 256-thread
+//   blocks over 64 x 64 f32 tiles in shared memory, rows padded to D + 1 and
+//   65 words so that the 8 rows a warp reads lie on distinct banks; thread t
+//   owns row t / 4 and columns t % 4 + 4 j of a tile, as in the flash
+//   kernels. Their f32 FMA and shared-memory rate bound them, at 100-125x
+//   the bounds (bf16 took this route too, before the tensor-core kernels);
+//   TF32 would not meet the f32 comparisons, so f32 stays here.
+//
+// Design common to both, with the TPU's sequential map axis a loop inside
+// the block over its run of the map. A TPU block of 512 rows is 256 KB in
+// f32 at D = 128, past an SM's 227 KB, so a CUDA block takes a 64-row
 // sub-tile of one map block and never straddles two (any block size works:
 // a block of 16 rows is one sub-tile with 48 idle rows; 512 is eight).
 // - forward and dq: one block per (batch * head, 64-query sub-tile). It
@@ -64,16 +95,13 @@
 // A partial entry skips its 64 x 64 sub-tiles that hold no live pair (the
 // causal edge's upper triangle, the window's far corner, a sink block's
 // keys past the prefix), by a block-uniform test on the sub-tile's corners.
-// Thread t owns row t / 4 and columns t % 4 + 4 j of a tile, as in the
-// flash kernels; rows are padded to D + 1 and 65 words so that the 8 rows a
-// warp reads lie on distinct banks. Shared memory at D = Dv = 128: forward
-// 116 KB, dq 149 KB, dk / dv 166 KB, above the 48 KB a block gets without
-// cudaFuncSetAttribute. mma.sync / wgmma on bf16, TMA and warp
-// specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -85,14 +113,11 @@ constexpr float kMasked = -1e30f;
 constexpr int kQI = 0, kKB = 1, kFlag = 2, kWidth = 5;
 constexpr int kFull = 0, kCausalOnly = 2;
 
+// The CUDA-core kernels below are instantiated for f32 only (bf16 takes the
+// tensor-core kernels further down); these keep their element type T.
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 struct Strides {
   long long b, h, n, d;
@@ -150,6 +175,18 @@ __device__ __forceinline__ bool tile_live(const Args& a, int flag, int q0, int q
   if (a.causal && k0 > q1) return false;
   if (a.has_window && flag != kCausalOnly && q0 - k1 >= a.window &&
       k0 >= a.global_prefix)
+    return false;
+  return true;
+}
+
+// Whether every pair of the sub-tile is live (the corners pass every clause
+// of the mask): then the per-pair test is skipped.
+__device__ __forceinline__ bool tile_full(const Args& a, int flag, int q0, int q1, int k0,
+                                          int k1) {
+  if (flag == kFull) return true;
+  if (a.causal && k1 > q0) return false;
+  if (a.has_window && flag != kCausalOnly && q1 - k0 >= a.window &&
+      k1 >= a.global_prefix)
     return false;
   return true;
 }
@@ -475,6 +512,517 @@ __global__ void __launch_bounds__(kThreads) sparse_dkv_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (attn_mma.cuh), every product a warpgroup
+// wgmma. Tiles of 64 rows in shared memory in wgmma's 128-byte swizzled
+// layout (64-column blocks, D and Dv zero-filled to 64 or 128); the walked
+// tiles in two stages, one filled by cp.async while the other is used. The
+// forward and dq: one warpgroup (4 warps), the 64 query rows of the
+// sub-tile; dk / dv: two, each the 64 keys against one half of the walked
+// query sub-tile, so that the halves run at once and a key tile that many
+// query tiles attend (the sinks) takes half as long; the halves' sums meet
+// in shared memory at the end (no atomics, one rounding).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128, kDkvThreads = 256;
+using attn_mma::bf16;
+
+// Where a block's walk stands: the run's entry (for dk / dv, the group's
+// heads times the run: head ge / ne, entry ge % ne), the walked sub-tile's
+// rows [start, end) and the entry's flag.
+struct Walk {
+  int ge, start, end, flag;
+};
+
+// Moves w to the first sub-tile at or after it that may hold a live pair
+// with this block's own rows [own0, own1] (queries for the forward and dq,
+// keys for dk / dv; `by_key`: the walk is over query sub-tiles). start < 0
+// enters an entry at its first sub-tile. Block-uniform; false past the
+// walk's end (total entries from e0, ne a head).
+__device__ __forceinline__ bool seek(const Args& a, bool by_key, int e0, int ne, int total,
+                                     int own0, int own1, Walk& w) {
+  for (; w.ge < total; ++w.ge, w.start = -1) {
+    const int* ent = a.map + (long long)(e0 + w.ge % ne) * kWidth;
+    const int flag = ent[kFlag];
+    const int size = by_key ? a.block_q : a.block_k;
+    const int blk_end = ((by_key ? ent[kQI] : ent[kKB]) + 1) * size;
+    if (w.start < 0) w.start = blk_end - size;
+    for (; w.start < blk_end; w.start += kT) {
+      w.end = min(w.start + kT, blk_end);
+      if (by_key ? tile_live(a, flag, w.start, w.end - 1, own0, own1)
+                 : tile_live(a, flag, own0, own1, w.start, w.end - 1)) {
+        w.flag = flag;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The dynamic shared memory's first 1024-byte boundary (the launch asks for
+// 1 KB more): swizzled tiles start on one.
+__device__ __forceinline__ bf16* swizzle_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw + ((1024 - (attn_mma::smem_u32(raw) & 1023)) & 1023));
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, 2) sparse_fwd_wgmma_kernel(Args a) {
+  using namespace attn_mma;
+  constexpr int kTile = kT * DMAX, kNt = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = swizzle_base(smem_raw);  // kT x DMAX
+  bf16* ks = qs + kTile;              // 2 stages
+  bf16* vs = ks + 2 * kTile;          // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.h, hq = bh % a.h;
+  const int hk = hq / (a.h / a.hkv);
+  const int tiles = (a.block_q + kT - 1) / kT;
+  const int qb = blockIdx.x / tiles;
+  const int q_start = qb * a.block_q + (blockIdx.x % tiles) * kT;
+  const int q_end = min(q_start + kT, (qb + 1) * a.block_q);
+  const int row0 = q_start + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq.b + hq * a.sq.h;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
+  const int e0 = a.ptr[qb], ne = a.ptr[qb + 1] - e0;
+
+  float o[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
+
+  Walk cur{0, -1, 0, 0};
+  bool have = seek(a, false, e0, ne, ne, q_start, q_end - 1, cur);
+  if (have) {
+    load_tile_sw128<kT, DMAX, kMmaThreads>(qs, qp, a.sq.n, q_start, q_end, a.d);
+    load_tile_sw128<kT, DMAX, kMmaThreads>(ks, kp, a.sk.n, cur.start, cur.end, a.d);
+    load_tile_sw128<kT, DMAX, kMmaThreads>(vs, vp, a.sv.n, cur.start, cur.end, a.dv);
+  }
+  cp_async_commit();
+  for (int stage = 0; have; stage ^= 1) {
+    Walk nxt = cur;
+    nxt.start += kT;
+    const bool more = seek(a, false, e0, ne, ne, q_start, q_end - 1, nxt);
+    if (more) {  // the next tile's copy runs during this tile's products
+      load_tile_sw128<kT, DMAX, kMmaThreads>(ks + (stage ^ 1) * kTile, kp, a.sk.n, nxt.start,
+                                             nxt.end, a.d);
+      load_tile_sw128<kT, DMAX, kMmaThreads>(vs + (stage ^ 1) * kTile, vp, a.sv.n, nxt.start,
+                                             nxt.end, a.dv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const bf16* kt = ks + stage * kTile;
+    const bf16* vt = vs + stage * kTile;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<kT>(qs, 0, kk), desc_k<kT>(kt, 0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<8>(s);
+
+    const bool full = cur.end - cur.start == kT && q_end - q_start == kT &&
+                      tile_full(a, cur.flag, q_start, q_end - 1, cur.start, cur.end - 1);
+    uint32_t live = ~0u;  // bit 4 j + e: element e of n-tile j is a kept pair
+    if (!full) {
+      live = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = cur.start + j * 8 + 2 * t + (e & 1), qi = row0 + (e / 2) * 8;
+          if (key < cur.end && keep_pair(a, cur.flag, qi, key)) live |= 1u << (4 * j + e);
+        }
+    }
+    float mt[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = live >> (4 * j + e) & 1u ? s[j][e] * a.scale : kMasked;
+        mt[e / 2] = fmaxf(mt[e / 2], s[j][e]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      const float m_new = fmaxf(m_run[r], mt[r]);
+      corr[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_run[e / 2]);  // p, rounded to bf16 below for PV
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_run[r] = l_run[r] * corr[r] + sum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DMAX>(o, pa[kk], desc_mn<kT>(vt, kk * 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<kNt>(o);
+    fence_frags<4>(pa);
+    __syncthreads();  // this stage is read; the next iteration refills it
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + r * 8;
+    if (qi >= q_end) continue;
+    // m_run is still the masked value only when no key of the row was live.
+    const bool none = m_run[r] == kMasked;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    const long long row = (long long)bh * a.n + qi;
+    bf16* orow = static_cast<bf16*>(a.out0) + row * a.dv;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+      store_pair(orow, j * 8 + 2 * t, a.dv, none ? 0.f : o[j][2 * r] / l,
+                 none ? 0.f : o[j][2 * r + 1] / l);
+    if (t == 0) static_cast<float*>(a.out1)[row] = none ? kMasked : m_run[r] + logf(l);
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kMmaThreads, 2) sparse_dq_wgmma_kernel(Args a) {
+  using namespace attn_mma;
+  constexpr int kTile = kT * DMAX, kNt = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = swizzle_base(smem_raw);  // kT x DMAX
+  bf16* dos = qs + kTile;             // kT x DMAX
+  bf16* ks = dos + kTile;             // 2 stages
+  bf16* vs = ks + 2 * kTile;          // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int bh = blockIdx.y, b = bh / a.h, hq = bh % a.h;
+  const int hk = hq / (a.h / a.hkv);
+  const int tiles = (a.block_q + kT - 1) / kT;
+  const int qb = blockIdx.x / tiles;
+  const int q_start = qb * a.block_q + (blockIdx.x % tiles) * kT;
+  const int q_end = min(q_start + kT, (qb + 1) * a.block_q);
+  const int row0 = q_start + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row0 + 8 * r < q_end;
+    const long long row = (long long)bh * a.n + row0 + 8 * r;
+    row_lse[r] = ok ? a.lse[row] : 0.f;
+    row_delta[r] = ok ? a.delta[row] : 0.f;
+  }
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq.b + hq * a.sq.h;
+  const bf16* op = static_cast<const bf16*>(a.dout) + b * a.so.b + hq * a.so.h;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h;
+  const int e0 = a.ptr[qb], ne = a.ptr[qb + 1] - e0;
+
+  float acc[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  Walk cur{0, -1, 0, 0};
+  bool have = seek(a, false, e0, ne, ne, q_start, q_end - 1, cur);
+  if (have) {
+    load_tile_sw128<kT, DMAX, kMmaThreads>(qs, qp, a.sq.n, q_start, q_end, a.d);
+    load_tile_sw128<kT, DMAX, kMmaThreads>(dos, op, a.so.n, q_start, q_end, a.dv);
+    load_tile_sw128<kT, DMAX, kMmaThreads>(ks, kp, a.sk.n, cur.start, cur.end, a.d);
+    load_tile_sw128<kT, DMAX, kMmaThreads>(vs, vp, a.sv.n, cur.start, cur.end, a.dv);
+  }
+  cp_async_commit();
+  for (int stage = 0; have; stage ^= 1) {
+    Walk nxt = cur;
+    nxt.start += kT;
+    const bool more = seek(a, false, e0, ne, ne, q_start, q_end - 1, nxt);
+    if (more) {
+      load_tile_sw128<kT, DMAX, kMmaThreads>(ks + (stage ^ 1) * kTile, kp, a.sk.n, nxt.start,
+                                             nxt.end, a.d);
+      load_tile_sw128<kT, DMAX, kMmaThreads>(vs + (stage ^ 1) * kTile, vp, a.sv.n, nxt.start,
+                                             nxt.end, a.dv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const bf16* kt = ks + stage * kTile;
+    const bf16* vt = vs + stage * kTile;
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      wgmma_ss_n64(s, desc_k<kT>(qs, 0, kk), desc_k<kT>(kt, 0, kk));
+      wgmma_ss_n64(dp, desc_k<kT>(dos, 0, kk), desc_k<kT>(vt, 0, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<8>(s);
+    fence_frags<8>(dp);
+
+    const bool full = cur.end - cur.start == kT && q_end - q_start == kT &&
+                      tile_full(a, cur.flag, q_start, q_end - 1, cur.start, cur.end - 1);
+    uint32_t live = ~0u;  // bit 4 j + e: element e of n-tile j is a kept pair
+    if (!full) {
+      live = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = cur.start + j * 8 + 2 * t + (e & 1), qi = row0 + (e / 2) * 8;
+          if (qi < q_end && key < cur.end && keep_pair(a, cur.flag, qi, key))
+            live |= 1u << (4 * j + e);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // exp(-inf) = 0 for a masked pair: no branch around the expf.
+        const float p = expf(live >> (4 * j + e) & 1u ? s[j][e] * a.scale - row_lse[e / 2]
+                                                      : -INFINITY);
+        s[j][e] = p * (dp[j][e] - row_delta[e / 2]);  // ds, rounded to bf16 below
+      }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(da[kk], s[2 * kk], s[2 * kk + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DMAX>(acc, da[kk], desc_mn<kT>(kt, kk * 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<kNt>(acc);
+    fence_frags<4>(da);
+    __syncthreads();
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + r * 8;
+    if (qi >= q_end) continue;
+    bf16* out = static_cast<bf16*>(a.out0) + ((long long)bh * a.n + qi) * a.d;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+      store_pair(out, j * 8 + 2 * t, a.d, a.scale * acc[j][2 * r],
+                 a.scale * acc[j][2 * r + 1]);
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kDkvThreads, 1) sparse_dkv_wgmma_kernel(Args a) {
+  using namespace attn_mma;
+  constexpr int kTile = kT * DMAX, kNt = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = swizzle_base(smem_raw);  // kT x DMAX
+  bf16* vs = ks + kTile;              // kT x DMAX
+  bf16* qs = vs + kTile;              // 2 stages
+  bf16* dos = qs + 2 * kTile;         // 2 stages
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile);  // 2 stages of kT
+  float* delta_s = lse_s + 2 * kT;                            // 2 stages of kT
+
+  // Warpgroup `half` (warps 4 half .. 4 half + 3) takes the 64 keys against
+  // queries 32 half .. 32 half + 31 of each walked sub-tile; its warp w % 4
+  // holds keys 16 (w % 4) .. + 15 of the products.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int kw = warp % 4, half = warp / 4;
+  // The KV head is the grid's fast axis (see the launch).
+  const int bkv = blockIdx.x, b = bkv / a.hkv, hk = bkv % a.hkv;
+  const int group = a.h / a.hkv;
+  const int tiles = (a.block_k + kT - 1) / kT;
+  const int kb = blockIdx.y / tiles;
+  const int k_start = kb * a.block_k + (blockIdx.y % tiles) * kT;
+  const int k_end = min(k_start + kT, (kb + 1) * a.block_k);
+  const int key0 = k_start + kw * 16 + lane / 4;  // keys key0 and key0 + 8
+  const int e0 = a.ptr[kb], ne = a.ptr[kb + 1] - e0;
+
+  float dk_acc[kNt][4], dv_acc[kNt][4];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  // Q, dO, lse and delta of the walked query sub-tile w into stage st.
+  auto load_q = [&](const Walk& w, int st) {
+    const int hq = hk * group + w.ge / ne;
+    const long long bh = (long long)b * a.h + hq;
+    load_tile_sw128<kT, DMAX, kDkvThreads>(
+        qs + st * kTile, static_cast<const bf16*>(a.q) + b * a.sq.b + hq * a.sq.h, a.sq.n,
+        w.start, w.end, a.d);
+    load_tile_sw128<kT, DMAX, kDkvThreads>(
+        dos + st * kTile, static_cast<const bf16*>(a.dout) + b * a.so.b + hq * a.so.h,
+        a.so.n, w.start, w.end, a.dv);
+    if (threadIdx.x < 2 * kT) {
+      const int i = threadIdx.x % kT, row = w.start + i;
+      const float* src = (threadIdx.x < kT ? a.lse : a.delta) + bh * a.n;
+      float* dst = (threadIdx.x < kT ? lse_s : delta_s) + st * kT + i;
+      cp_async4(dst, row < w.end ? src + row : src, row < w.end ? 4 : 0);
+    }
+  };
+
+  // An unattended key block (ne == 0) walks nothing, reads neither K nor
+  // V, and writes zeros.
+  Walk cur{0, -1, 0, 0};
+  bool have = seek(a, true, e0, ne, group * ne, k_start, k_end - 1, cur);
+  if (have) {
+    load_tile_sw128<kT, DMAX, kDkvThreads>(
+        ks, static_cast<const bf16*>(a.k) + b * a.sk.b + hk * a.sk.h, a.sk.n, k_start, k_end,
+        a.d);
+    load_tile_sw128<kT, DMAX, kDkvThreads>(
+        vs, static_cast<const bf16*>(a.v) + b * a.sv.b + hk * a.sv.h, a.sv.n, k_start, k_end,
+        a.dv);
+    load_q(cur, 0);
+  }
+  cp_async_commit();
+  for (int stage = 0; have; stage ^= 1) {
+    Walk nxt = cur;
+    nxt.start += kT;
+    const bool more = seek(a, true, e0, ne, group * ne, k_start, k_end - 1, nxt);
+    if (more) load_q(nxt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const bf16* qt = qs + stage * kTile;
+    const bf16* ot = dos + stage * kTile;
+    const float* lse_t = lse_s + stage * kT + half * 32;
+    const float* delta_t = delta_s + stage * kT + half * 32;
+    const bool full = cur.end - cur.start == kT && k_end - k_start == kT &&
+                      tile_full(a, cur.flag, cur.start, cur.end - 1, k_start, k_end - 1);
+
+    // S^T and dP^T (64 keys x this half's 32 queries), P^T and dS^T in place.
+    float st_[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st_[j][e] = dpt[j][e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
+      wgmma_ss_n32(st_, desc_k<kT>(ks, 0, kk), desc_k<kT>(qt, half * 32, kk));
+      wgmma_ss_n32(dpt, desc_k<kT>(vs, 0, kk), desc_k<kT>(ot, half * 32, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<4>(st_);
+    fence_frags<4>(dpt);
+    uint32_t live = ~0u;  // bit 4 j + e: element e of n-tile j is a kept pair
+    if (!full) {
+      live = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = cur.start + half * 32 + j * 8 + 2 * t + (e & 1);
+          const int ki = key0 + (e / 2) * 8;
+          if (ki < k_end && qi < cur.end && keep_pair(a, cur.flag, qi, ki))
+            live |= 1u << (4 * j + e);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);  // the query's column of the half
+        const float p =  // exp(-inf) = 0 for a masked pair: no branch around the expf
+            expf(live >> (4 * j + e) & 1u ? st_[j][e] * a.scale - lse_t[c] : -INFINITY);
+        st_[j][e] = p;                              // rounded for dV below
+        dpt[j][e] = p * (dpt[j][e] - delta_t[c]);  // ds, rounded for dK below
+      }
+    uint32_t pa[2][4], da[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      pack_a(pa[kk], st_[2 * kk], st_[2 * kk + 1]);
+      pack_a(da[kk], dpt[2 * kk], dpt[2 * kk + 1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      wgmma_rs<DMAX>(dv_acc, pa[kk], desc_mn<kT>(ot, half * 32 + kk * 16));
+      wgmma_rs<DMAX>(dk_acc, da[kk], desc_mn<kT>(qt, half * 32 + kk * 16));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags<kNt>(dv_acc);
+    fence_frags<kNt>(dk_acc);
+    fence_frags<2>(pa);
+    fence_frags<2>(da);
+    __syncthreads();  // this stage is read; the next iteration refills it
+    cur = nxt;
+    have = more;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The second query half's sums, through the stages (free now), onto the
+  // first's: the same fragment slots, one float per thread and slot.
+  float* red = reinterpret_cast<float*>(qs);  // 2 kNt 4 x 128 floats: 4 tiles
+  const int slot = kw * 32 + lane;
+  if (half == 1) {
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[((2 * j) * 4 + e) * 128 + slot] = dk_acc[j][e];
+        red[((2 * j + 1) * 4 + e) * 128 + slot] = dv_acc[j][e];
+      }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int j = 0; j < kNt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[j][e] += red[((2 * j) * 4 + e) * 128 + slot];
+      dv_acc[j][e] += red[((2 * j + 1) * 4 + e) * 128 + slot];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = key0 + r * 8;
+    if (ki >= k_end) continue;
+    const long long row = (long long)bkv * a.kn + ki;
+    bf16* dk = static_cast<bf16*>(a.out0) + row * a.d;
+    bf16* dvo = static_cast<bf16*>(a.out1) + row * a.dv;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      store_pair(dk, j * 8 + 2 * t, a.d, a.scale * dk_acc[j][2 * r],
+                 a.scale * dk_acc[j][2 * r + 1]);
+      store_pair(dvo, j * 8 + 2 * t, a.dv, dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+    }
+  }
+}
+
 enum Which { kFwd, kDq, kDkv };
 
 size_t smem_bytes(Which w, int d, int dv) {
@@ -485,8 +1033,21 @@ size_t smem_bytes(Which w, int d, int dv) {
   return sizeof(float) * (2 * qd + 2 * vd + 2 * pt + 2 * kT);
 }
 
+// Shared memory of the bf16 kernels, whose tiles are all DMAX wide, plus
+// 1 KB to align them: the forward's Q and two stages of K and V (81 KB at
+// DMAX 128, two blocks an SM); dq's Q, dO and two stages of K and V (97
+// KB, two blocks); dk / dv's K, V, two stages of Q and dO and of lse and
+// delta (98 KB; its two warpgroups take 213 registers a thread, so one
+// block an SM).
+size_t wgmma_smem_bytes(Which w, int dmax) {
+  const size_t tile = sizeof(attn_mma::bf16) * kT * dmax;
+  if (w == kFwd) return 5 * tile + 1024;
+  return 6 * tile + (w == kDkv ? 4 * kT * sizeof(float) : 0) + 1024;
+}
+
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t bytes, size_t* allowed, dim3 grid,
+cudaError_t launch(Kernel kernel, int threads, size_t bytes, size_t* allowed, dim3 grid,
                    const Args& a, cudaStream_t stream) {
   if (bytes > *allowed) {  // raised once per instantiation
     cudaError_t err = cudaFuncSetAttribute(
@@ -494,27 +1055,31 @@ cudaError_t launch(Kernel kernel, size_t bytes, size_t* allowed, dim3 grid,
     if (err != cudaSuccess) return err;
     *allowed = bytes;
   }
-  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  kernel<<<grid, threads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The forward and dq: one block per (64-query sub-tile, batch * head). dk /
+// dv: key tiles on the slow axis, so that the blocks of a key tile, one per
+// (batch, KV head), start together and the heavy ones first: a key tile
+// that many query blocks attend (the sinks; under a causal mask the first)
+// holds several times the average work, and started last it would run on
+// alone after the rest of the grid is done.
+dim3 grid_of(Which w, const Args& a, int b) {
+  if (w == kDkv) return dim3(b * a.hkv, (a.kn / a.block_k) * ((a.block_k + kT - 1) / kT));
+  return dim3((a.n / a.block_q) * ((a.block_q + kT - 1) / kT), b * a.h);
 }
 
 template <typename T, int DMAX>
 cudaError_t launch_as(Which w, const Args& a, int b, cudaStream_t stream) {
   static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
   const size_t bytes = smem_bytes(w, a.d, a.dv);
-  if (w == kDkv) {
-    // Key tiles on the slow axis, so that the blocks of a key tile, one per
-    // (batch, KV head), start together and the heavy ones first: a key
-    // tile that many query blocks attend (the sinks; under a causal mask
-    // the first) holds several times the average work, and started last it
-    // would run on alone after the rest of the grid is done.
-    const int tiles = (a.block_k + kT - 1) / kT;
-    return launch(sparse_dkv_kernel<T, DMAX>, bytes, &allowed[w],
-                  dim3(b * a.hkv, (a.kn / a.block_k) * tiles), a, stream);
-  }
-  const dim3 grid((a.n / a.block_q) * ((a.block_q + kT - 1) / kT), b * a.h);
-  if (w == kDq) return launch(sparse_dq_kernel<T, DMAX>, bytes, &allowed[w], grid, a, stream);
-  return launch(sparse_fwd_kernel<T, DMAX>, bytes, &allowed[w], grid, a, stream);
+  const dim3 grid = grid_of(w, a, b);
+  if (w == kDkv)
+    return launch(sparse_dkv_kernel<T, DMAX>, kThreads, bytes, &allowed[w], grid, a, stream);
+  if (w == kDq)
+    return launch(sparse_dq_kernel<T, DMAX>, kThreads, bytes, &allowed[w], grid, a, stream);
+  return launch(sparse_fwd_kernel<T, DMAX>, kThreads, bytes, &allowed[w], grid, a, stream);
 }
 
 template <typename T>
@@ -524,6 +1089,38 @@ cudaError_t by_width(Which w, const Args& a, int b, cudaStream_t stream) {
   if (widest <= 64) return launch_as<T, 64>(w, a, b, stream);
   if (widest <= 128) return launch_as<T, 128>(w, a, b, stream);
   return cudaErrorInvalidValue;
+}
+
+template <int DMAX>
+cudaError_t launch_wgmma(Which w, const Args& a, int b, cudaStream_t stream) {
+  static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+  const size_t bytes = wgmma_smem_bytes(w, DMAX);
+  const dim3 grid = grid_of(w, a, b);
+  if (w == kDkv)
+    return launch(sparse_dkv_wgmma_kernel<DMAX>, kDkvThreads, bytes, &allowed[w], grid, a,
+                  stream);
+  if (w == kDq)
+    return launch(sparse_dq_wgmma_kernel<DMAX>, kMmaThreads, bytes, &allowed[w], grid, a,
+                  stream);
+  return launch(sparse_fwd_wgmma_kernel<DMAX>, kMmaThreads, bytes, &allowed[w], grid, a,
+                stream);
+}
+
+// bf16: D and Dv both padded (zero-filled) to the width instantiated.
+cudaError_t wgmma_by_width(Which w, const Args& a, int b, cudaStream_t stream) {
+  const int widest = max(a.d, a.dv);
+  if (widest <= 64) return launch_wgmma<64>(w, a, b, stream);
+  if (widest <= 128) return launch_wgmma<128>(w, a, b, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 kernels copy rows 16 bytes at a time: a tensor needs unit
+// stride along its rows, every other stride (of an axis longer than 1) a
+// multiple of 8 elements, and a 16-byte-aligned start.
+bool rows_aligned(const void* p, const long long* s, int b, int heads, int n) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[3] == 1 &&
+         (b == 1 || s[0] % 8 == 0) && (heads == 1 || s[1] % 8 == 0) &&
+         (n == 1 || s[2] % 8 == 0);
 }
 
 int entry(Which w, const void* q, const void* k, const void* v, const void* dout,
@@ -539,8 +1136,12 @@ int entry(Which w, const void* q, const void* k, const void* v, const void* dout
       (w != kDkv && (b * h > 65535 ||
                      (long long)n / block_q * ((block_q + kT - 1) / kT) > 0x7fffffffLL)) ||
       (w == kDkv && (long long)kn / block_k * ((block_k + kT - 1) / kT) > 65535) ||
-      smem_bytes(w, d, dv) > 227 * 1024)
+      (dtype == 0 && smem_bytes(w, d, dv) > 227 * 1024))
     return cudaErrorInvalidValue;
+  if (dtype == 1 && !(rows_aligned(q, st, b, h, n) && rows_aligned(k, st + 4, b, hkv, kn) &&
+                      rows_aligned(v, st + 8, b, hkv, kn) &&
+                      (w == kFwd || rows_aligned(dout, st + 12, b, h, n))))
+    return cudaErrorMisalignedAddress;
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                out0, out1,
@@ -550,8 +1151,8 @@ int entry(Which w, const void* q, const void* k, const void* v, const void* dout
                Strides{st[8], st[9], st[10], st[11]}, Strides{st[12], st[13], st[14], st[15]},
                scale, causal, has_window, window, global_prefix};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_width<float>(w, a, b, s);
-  if (dtype == 1) return by_width<__nv_bfloat16>(w, a, b, s);
+  if (dtype == 0) return by_width<float>(w, a, b, s);  // the CUDA cores, in f32
+  if (dtype == 1) return wgmma_by_width(w, a, b, s);   // the tensor cores
   return cudaErrorInvalidValue;
 }
 
@@ -567,7 +1168,9 @@ extern "C" {
 // cudaError_t: cudaErrorInvalidValue for what the kernels do not take (D or
 // Dv > 128, H not a multiple of Hkv, N or KN not a multiple of its block, a
 // grid past 65,535 on its slow axis: B * H for the forward and dq, the key
-// sub-tiles for dk / dv).
+// sub-tiles for dk / dv); cudaErrorMisalignedAddress for a bf16 tensor
+// whose rows the tensor-core kernels cannot copy 16 bytes at a time (see
+// rows_aligned).
 #define KU_SPARSE_ENTRY(NAME, WHICH)                                            \
   int NAME(const void* q, const void* k, const void* v, const void* dout,       \
            const void* lse, const void* delta, void* out0, void* out1,          \

@@ -256,13 +256,20 @@ class RBMLayer(nn.Module):
 
     Forwards P(h|v) (sigmoid, or relu in Gaussian mode), or, with
     ``sample=True`` in training mode, a Bernoulli draw from it without a
-    gradient. Unless ``trainable``, the RBM weights get no gradient."""
+    gradient. Unless ``trainable``, the RBM weights get no gradient.
+    ``device`` is ``"cuda"`` unless the caller asks for the CPU; a
+    ``generator`` must live on that device."""
 
     def __init__(self, input_dim: int, output_dim: int,
                  mode: int = MODE_VISIBLE_BERNOULLI, sample: bool = False,
                  trainable: bool = False, generator: Optional[torch.Generator] = None,
-                 device=None, dtype=torch.float32):
+                 device="cuda", dtype=torch.float32):
         super().__init__()
+        device = torch.device(device)
+        if generator is not None and generator.device.type != device.type:
+            raise ValueError(f"RBMLayer on device {device!r} got a generator on "
+                             f"{generator.device}: pass one made on {device.type}, or "
+                             f"device={generator.device.type!r}")
         self.mode, self.sample = mode, sample
         self.rbm_weight = nn.Parameter(_uniform_pm(
             (input_dim, output_dim), generator, device, dtype), requires_grad=trainable)

@@ -46,8 +46,10 @@ def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
     """Compile every ``(source, name)`` not built yet, one ``nvcc`` process
     per source, all started together.
 
-    Returns one (library path, compiler output; empty when already built)
-    per spec, in order. Raises naming the first source that failed."""
+    Returns one (library path, compiler output) per spec, in order: the
+    output of the build that made the library, kept beside it as
+    ``<library>.log`` (empty when that file is gone). Raises naming the
+    first source that failed."""
     specs = [(Path(src), name) for src, name in specs]
     jobs = []
     for src, name in specs:
@@ -63,13 +65,15 @@ def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
         jobs.append((src, lib, tmp, proc))
     results, failed = [], []
     for src, lib, tmp, proc in jobs:
+        log = lib.with_suffix(".log")
         if proc is None:
-            results.append((lib, ""))
+            results.append((lib, log.read_text() if log.exists() else ""))
             continue
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {src}:\n{out}")
             continue
+        log.write_text(out)
         os.replace(tmp, lib)
         results.append((lib, out))
     if failed:
@@ -80,5 +84,5 @@ def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
 def build(source: Path, name: str) -> Tuple[Path, str]:
     """Compile one source if it has not been built yet.
 
-    Returns (library path, compiler output; empty when already built)."""
+    Returns (library path, compiler output), as :func:`build_many`."""
     return build_many([(source, name)])[0]

@@ -17,8 +17,11 @@ Port of ``ku/pallas/sparse_attention.py``.
   one block per (batch·head, 64-query sub-tile of a query block) that walks
   its query block's run of ``fmap``, dk/dv from one block per (batch·KV
   head, 64-key sub-tile of a key block) that walks its key block's run of
-  ``tmap`` for every query head of the group. The source's notes say what
-  bounds them on an H100.
+  ``tmap`` for every query head of the group. Two routes, by dtype: bf16 on
+  the tensor cores (warpgroup ``wgmma`` over swizzled bf16 tiles that
+  ``cp.async`` fills, ``ku_torch/csrc/attn_mma.cuh``), f32 on the CUDA
+  cores. The source's
+  notes say what bounds them on an H100.
 - :func:`sparse_fwd_cuda`, :func:`sparse_bwd_dq_cuda` and
   :func:`sparse_bwd_dkv_cuda` launch the kernels on CUDA tensors and add one
   to their ``launches`` count per launch; :func:`sparse_fwd_torch`,
@@ -40,8 +43,9 @@ j // (H/Hkv)), N and KN those of the mask. Per entry, the element mask of
 ``_mask_sparse``: a ``_FULL`` entry keeps every pair; the others keep
 ``k <= q`` if the mask is causal, and with a window also ``q - k < window``
 or ``k < global_prefix`` (a ``_CAUSAL_ONLY`` entry is exempt from that
-clause). On the card: f32 or bf16, any strides, D and Dv up to 128, any
-block sizes. The forward returns (o (B, H, N, Dv) in q's dtype, lse (B, H,
+clause). On the card: f32 or bf16, any strides (a bf16 tensor whose rows
+the tensor-core kernels cannot copy as they lie is copied first, see
+:func:`sparse_fwd_cuda`), D and Dv up to 128, any block sizes. The forward returns (o (B, H, N, Dv) in q's dtype, lse (B, H,
 N) f32); the backward (dq, dk, dv) in the dtypes of q, k and v, dk/dv
 summed over each KV head's group in f32 and rounded once. bf16 is rounded
 where ``ku`` rounds it: p to v's dtype before P·V; ds to k's dtype for dq;
@@ -279,27 +283,61 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _mma_ready(t) -> bool:
+    """Whether the tensor-core kernels can copy ``t``'s rows 16 bytes at a
+    time: unit stride along the last axis, every other stride of an axis
+    longer than 1 a multiple of 8 elements (16 bytes of bf16), and a
+    16-byte-aligned start. Autograd's dO, a transposed view with rows H·Dv
+    apart, is."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def _mma_rows(t):
+    """``t`` itself when :func:`_mma_ready`, else a copy whose rows are padded
+    to a multiple of 8 elements (contiguous when the width is one), viewed
+    at ``t``'s width."""
+    if _mma_ready(t):
+        return t
+    width = t.shape[-1]
+    out = torch.empty(*t.shape[:-1], -(-width // 8) * 8, dtype=t.dtype, device=t.device)
+    out = out[..., :width]
+    out.copy_(t)
+    return out
+
+
+def _route(dtype) -> str:
+    """The kernels a launch takes, as the C entry dispatches: bf16 on the
+    tensor cores (``mma``), f32 on the CUDA cores (``f32``)."""
+    return "mma" if dtype == torch.bfloat16 else "f32"
+
+
 def _launch(entry, outs, q, k, v, do, lse, delta, mask, softmax_scale):
     """One launch of ``entry``'s kernel: the forward (``do``, ``lse`` and
     ``delta`` None; outs (o, lse)), dq (outs (dq,)) or dk/dv (outs (dk,
-    dv))."""
+    dv)). Shapes are checked before devices and types, so that what the
+    kernels refuse is refused the same way on any device."""
     name = entry.__name__
     _check(q, k, v, mask)
-    device = q.device
     b, h, n, d = q.shape
     hkv, kn, dv = k.shape[1], k.shape[2], v.shape[3]
     if d > 128 or dv > 128:
         raise ValueError(f"{name} takes heads up to 128 wide, got {d} and {dv}")
-    _check_cuda(name, q, k, v, *(() if do is None else (do,)))
     if do is not None:
         if do.shape != (b, h, n, dv):
             raise ValueError(f"dO shape {tuple(do.shape)} != {(b, h, n, dv)}")
         for t, what in ((lse, "lse"), (delta, "delta")):
-            if t.shape != (b, h, n) or t.dtype != torch.float32 or t.device != device:
-                raise ValueError(f"{what} must be ({b}, {h}, {n}) float32 on {device}, "
+            if t.shape != (b, h, n) or t.dtype != torch.float32 or t.device != q.device:
+                raise ValueError(f"{what} must be ({b}, {h}, {n}) float32 on {q.device}, "
                                  f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_cuda(name, q, k, v, *(() if do is None else (do,)))
+    if do is not None:
         lse, delta = lse.contiguous(), delta.contiguous()
-    fmap, tmap, fptr, tptr = mask.arrays(device)
+    route = _route(q.dtype)
+    if route == "mma":
+        q, k, v = _mma_rows(q), _mma_rows(k), _mma_rows(v)
+        do = None if do is None else _mma_rows(do)
+    fmap, tmap, fptr, tptr = mask.arrays(q.device)
     by_key = entry is sparse_bwd_dkv_cuda
     strides = (ctypes.c_longlong * 16)(
         *q.stride(), *k.stride(), *v.stride(),
@@ -313,22 +351,28 @@ def _launch(entry, outs, q, k, v, do, lse, delta, mask, softmax_scale):
         b, h, hkv, n, kn, d, dv, mask.block_q, mask.block_k, strides,
         float(softmax_scale), int(mask.causal), int(mask.window is not None),
         int(mask.window or 0), int(mask.global_prefix), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.sparse_error_string(err).decode()} ({err})")
     entry.launches += 1
+    entry.route = route
 
 
 def sparse_fwd_cuda(q, k, v, mask: BlockMask, softmax_scale: float = 1.0):
     """The forward as one launch of the kernel: (o, lse).
 
     Takes CUDA tensors on one device, q/k/v all f32 or all bf16 with any
-    strides, D and Dv up to 128. Launches on the current stream and does not
-    synchronise. Raises on anything else and if the launch is refused."""
-    b, h, n, _ = q.shape
-    o = torch.empty(b, h, n, v.shape[-1], dtype=q.dtype, device=q.device)
-    lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
+    strides, D and Dv up to 128. bf16 runs on the tensor cores, f32 on the
+    CUDA cores (``launches`` counts both; ``route`` names the last one's).
+    The tensor-core kernels copy rows 16 bytes at a time: a bf16 tensor that
+    is not :func:`_mma_ready` (a stride along the head's width, rows not 16
+    bytes apart, a misaligned start) is first copied into a layout that is
+    (:func:`_mma_rows`). That is a copy on the card, not the plain version.
+    Launches on the current stream and does not synchronise. Raises on
+    anything else and if the launch is refused."""
+    o = torch.empty(*q.shape[:-1], v.shape[-1], dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _launch(sparse_fwd_cuda, (o, lse), q, k, v, None, None, None, mask, softmax_scale)
     return o, lse
 
@@ -355,9 +399,8 @@ def sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, mask: BlockMask,
     return dk, dv
 
 
-sparse_fwd_cuda.launches = 0
-sparse_bwd_dq_cuda.launches = 0
-sparse_bwd_dkv_cuda.launches = 0
+sparse_fwd_cuda.launches = sparse_bwd_dq_cuda.launches = sparse_bwd_dkv_cuda.launches = 0
+sparse_fwd_cuda.route = sparse_bwd_dq_cuda.route = sparse_bwd_dkv_cuda.route = None
 
 
 # ---------------------------------------------------------------------------

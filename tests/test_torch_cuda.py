@@ -627,7 +627,34 @@ SPARSE_CASES = {
     "blocks_512_wide_values": (((1024,), dict(block_q=512, block_k=512, causal=True,
                                               window=600, global_prefix=30)),
                                1, 4, 4, 64, 128, {}),
+    # Widths that are not multiples of 16 (zero-filled to the tile's width
+    # in shared memory), and q in layouts the tensor-core kernels cannot
+    # copy as they are (a stride of 2 along D; a start 2 bytes off 16;
+    # rows 72 bytes apart): the wrapper copies them first.
+    "d40_dv24_gqa": (((96,), dict(block_q=16, block_k=16, causal=True, window=20,
+                                  global_prefix=5)), 2, 4, 2, 40, 24, {}),
+    "d40_dv24_blocks_128x64_strided_q": (((512,), dict(block_q=128, block_k=64, causal=True,
+                                                       window=200, global_prefix=70)),
+                                         1, 4, 2, 40, 24, dict(q_layout="strided")),
+    "misaligned_q_blocks_64": (((256,), dict(block_q=64, block_k=64, causal=True, window=100,
+                                             global_prefix=10)), 1, 2, 1, 64, 64,
+                               dict(q_layout="offset", strided_do=True)),
+    "odd_widths_d36_dv12": (((128,), dict(block_q=64, block_k=64, causal=True)),
+                            1, 2, 2, 36, 12, {}),
 }
+
+
+def _q_in_layout(q, layout):
+    """q's values in another layout: "strided", every other element of a
+    row twice as wide; "offset", one element into a flat buffer."""
+    if layout == "strided":
+        wide = torch.zeros(*q.shape[:-1], 2 * q.shape[-1], dtype=q.dtype, device=q.device)
+        wide[..., ::2] = q
+        return wide[..., ::2]
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=q.device)
+    out = flat[1:].view(q.shape)
+    out.copy_(q)
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -647,13 +674,17 @@ def test_sparse_kernels_match_plain(device, case, dtype):
         do = torch.randn(b, mask.n, h, dv, generator=g, device=device).to(dtype).transpose(1, 2)
     else:
         do = torch.randn(b, h, mask.n, dv, generator=g, device=device).to(dtype)
-    before = tuple(f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
-                                        sa.sparse_bwd_dkv_cuda))
+    if opts.get("q_layout"):
+        q = _q_in_layout(q, opts["q_layout"])
+        assert not sa._mma_ready(q)
+    kernels = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+    before = tuple(f.launches for f in kernels)
     o, lse = sa.sparse_fwd(q, k, v, mask, 0.1)
     dq, dk, dv_ = sa.sparse_bwd(q, k, v, o, lse, do, mask, 0.1)
     torch.cuda.synchronize()
-    assert tuple(f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
-                                      sa.sparse_bwd_dkv_cuda)) == tuple(x + 1 for x in before)
+    assert tuple(f.launches for f in kernels) == tuple(x + 1 for x in before)
+    route = "mma" if dtype == torch.bfloat16 else "f32"
+    assert [f.route for f in kernels] == [route] * 3
     for t in (o, lse, dq, dk, dv_):
         assert torch.isfinite(t).all()
     o_p, lse_p = sa.sparse_fwd_torch(q, k, v, mask, 0.1)
@@ -686,6 +717,19 @@ def test_sparse_wrappers_reject_what_the_kernels_do_not_take(device):
         sa.sparse_bwd_dkv_cuda(wide, wide, wide, wide, lse, lse, mask)
     with pytest.raises(ValueError, match="do not match the BlockMask"):
         sa.sparse_fwd_cuda(q[:, :, :16], q, q, mask)
+
+
+def test_sparse_mma_launch_refuses_rows_it_cannot_copy(device, monkeypatch):
+    """The wrapper copies a bf16 tensor whose rows the tensor-core kernels
+    cannot take; without that copy the C entry refuses the launch, and the
+    wrapper raises: nothing falls back to the f32 kernels."""
+    mask = sa.make_block_mask(64, block_q=16, block_k=16, causal=True)
+    q = _q_in_layout(torch.randn(1, 2, 64, 16, device=device).bfloat16(), "offset")
+    monkeypatch.setattr(sa, "_mma_rows", lambda t: t)
+    before = sa.sparse_fwd_cuda.launches
+    with pytest.raises(RuntimeError, match="misaligned"):
+        sa.sparse_fwd_cuda(q, q.contiguous(), q.contiguous(), mask)
+    assert sa.sparse_fwd_cuda.launches == before
 
 
 class _SparseLM(_TiedLM):

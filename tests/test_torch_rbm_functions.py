@@ -6,6 +6,7 @@ with the same formulas (only the order of summation may differ).
 """
 
 import ast
+import inspect
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -64,13 +65,25 @@ def test_rbm_layer_matches_ku(rng, mode):
     layer_ku = ku_rbm.RBMLayer.as_flax(3, mode=mode)
     want = layer_ku.apply({"params": {"rbm_weight": p_np["rbm_weight"],
                                       "hidden_bias": p_np["hidden_bias"]}}, v)
-    layer_pt = pt_rbm.RBMLayer(5, 3, mode=mode)
+    layer_pt = pt_rbm.RBMLayer(5, 3, mode=mode, device="cpu")
     with torch.no_grad():
         layer_pt.rbm_weight.copy_(torch.from_numpy(p_np["rbm_weight"]))
         layer_pt.hidden_bias.copy_(torch.from_numpy(p_np["hidden_bias"]))
     got = layer_pt(torch.from_numpy(v))
     _close(got.detach(), want)
     assert not layer_pt.rbm_weight.requires_grad
+
+
+def test_rbm_layer_defaults_to_the_card():
+    """Like every module of the port, RBMLayer is made on "cuda" unless the
+    caller asks for the CPU; a generator on another device is refused by
+    name, before anything is drawn or moved."""
+    assert inspect.signature(pt_rbm.RBMLayer).parameters["device"].default == "cuda"
+    cpu_gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="generator on cpu"):
+        pt_rbm.RBMLayer(5, 3, generator=cpu_gen)
+    layer = pt_rbm.RBMLayer(5, 3, generator=cpu_gen, device="cpu")
+    assert layer.rbm_weight.device.type == "cpu"
 
 
 def test_complex_stacking_matches_ku(rng):

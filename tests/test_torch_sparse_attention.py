@@ -68,6 +68,8 @@ MASKS = {
     "lm_training": ((8192,), dict(block_q=512, block_k=512, causal=True,
                                   window=2048, global_prefix=128)),
     "sparse_gate_64k": ((65536,), dict(causal=True, window=4096, global_prefix=128)),
+    "blocks_128x64": ((256,), dict(block_q=128, block_k=64, causal=True, window=100,
+                                   global_prefix=10)),
 }
 
 
@@ -169,6 +171,10 @@ CASES = {
     "cross_unattended": ("cross_unattended", 1, 2, 2, 16, 16),
     "gqa_narrow_values": ("window_sinks", 1, 4, 2, 16, 8),
     "nonsquare_blocks_mqa": ("nonsquare_blocks", 1, 2, 1, 8, 12),
+    # The card's tensor-core kernels pad widths to 16 (D 40, Dv 24) and
+    # take map blocks of 16 and of 128 x 64 in 64-row sub-tiles.
+    "d40_dv24_blocks_16": ("window_sinks", 1, 2, 1, 40, 24),
+    "d40_dv24_blocks_128x64": ("blocks_128x64", 1, 2, 1, 40, 24),
 }
 
 
@@ -317,3 +323,76 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiple"):
         sa.sparse_bwd(q, q[:, :1].repeat(1, 3, 1, 1), q[:, :1].repeat(1, 3, 1, 1), q, lse,
                       q, mask)
+
+
+def _refused(name):
+    """(wrapper call, message) for each thing the wrappers refuse, on CPU
+    tensors: every shape check comes before the device check, so each is
+    refused here as on the card."""
+    mask = sa.make_block_mask(32, block_q=16, block_k=16, causal=True)
+    q = torch.zeros(1, 4, 32, 8)
+    kv = torch.zeros(1, 2, 32, 8)
+    lse = torch.zeros(1, 4, 32)
+    bwd = functools.partial(sa.sparse_bwd_dq_cuda, mask=mask)
+    return {
+        "not_4d": (lambda: sa.sparse_fwd_cuda(q[0], kv, kv, mask), r"\(B, H, N, D\)"),
+        "heads_not_a_multiple": (lambda: sa.sparse_fwd_cuda(q[:, :3], kv, kv, mask),
+                                 "multiple"),
+        "widths_do_not_fit": (lambda: sa.sparse_fwd_cuda(q, kv[..., :4], kv, mask),
+                              "do not fit"),
+        "mask_lengths": (lambda: sa.sparse_fwd_cuda(q[:, :, :16], kv, kv, mask),
+                         "do not match the BlockMask"),
+        "wider_than_128": (lambda: sa.sparse_fwd_cuda(*(torch.zeros(1, 2, 32, 136),) * 3, mask),
+                           "up to 128"),
+        "do_shape": (lambda: bwd(q, kv, kv, q[:, :, :, :4], lse, lse), "dO shape"),
+        "lse_shape": (lambda: bwd(q, kv, kv, q, lse[:, :2], lse), "lse must be"),
+        "delta_dtype": (lambda: sa.sparse_bwd_dkv_cuda(q, kv, kv, q, lse, lse.double(), mask),
+                        "delta must be"),
+        "cpu_tensors": (lambda: sa.sparse_bwd_dkv_cuda(q, kv, kv, q, lse, lse, mask),
+                        "CUDA tensors"),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["not_4d", "heads_not_a_multiple", "widths_do_not_fit",
+                                  "mask_lengths", "wider_than_128", "do_shape", "lse_shape",
+                                  "delta_dtype", "cpu_tensors"])
+def test_launch_refuses_without_a_card(name):
+    call, message = _refused(name)
+    launches = [f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
+                                     sa.sparse_bwd_dkv_cuda)]
+    with pytest.raises(ValueError, match=message):
+        call()
+    assert launches == [f.launches for f in (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda,
+                                             sa.sparse_bwd_dkv_cuda)]
+
+
+def _layout(name):
+    """A bf16 tensor of shape (2, 4, 8, D) in layout `name`."""
+    x = torch.arange(2 * 4 * 8 * 40, dtype=torch.float32).bfloat16()
+    if name == "contiguous":
+        return x.view(2, 4, 8, 40)
+    if name == "autograd_do":  # (B, N, H, Dv) seen through the heads' transpose
+        return x.view(2, 8, 4, 40).transpose(1, 2)
+    if name == "single_batch_odd_stride":  # an axis of 1 may have any stride
+        return torch.as_strided(x, (1, 4, 8, 40), (7, 320, 40, 1))
+    if name == "stride_along_d":
+        return x.view(2, 4, 8, 40)[..., ::2]
+    if name == "start_off_16_bytes":
+        return x[1:1 + 2 * 4 * 8 * 32].view(2, 4, 8, 32)
+    return x[:2 * 4 * 8 * 36].view(2, 4, 8, 36)  # "rows_72_bytes_apart"
+
+
+@pytest.mark.parametrize("name,ready", [
+    ("contiguous", True), ("autograd_do", True), ("single_batch_odd_stride", True),
+    ("stride_along_d", False), ("start_off_16_bytes", False), ("rows_72_bytes_apart", False)])
+def test_tensor_core_kernels_copy_rows_they_cannot_take(name, ready):
+    """The rule by which the bf16 wrapper copies an input for the tensor-core
+    kernels (16-byte row copies): a layout they take goes as it is; any other
+    is copied, values unchanged, into rows padded to 8 elements."""
+    t = _layout(name)
+    assert sa._mma_ready(t) == ready
+    got = sa._mma_rows(t)
+    assert (got is t) == ready
+    assert sa._mma_ready(got) and got.shape == t.shape and torch.equal(got, t)
+    assert got.stride(-2) % 8 == 0 and got.stride(-2) >= t.shape[-1]
+    assert sa._route(torch.bfloat16) == "mma" and sa._route(torch.float32) == "f32"
