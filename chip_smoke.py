@@ -53,12 +53,18 @@ Phases (any failure raises and the script exits non-zero):
    (rtol/atol 1e-4: f32 sums in another order) and bf16 (rtol 1e-2, just
    above one bf16 ulp, for the output's own rounding; atol 2e-3 for the
    probabilities' rounding to bf16 against another running max): flash
-   forward at the prefill's shape (the cache page read through a
-   transposed view, per-row offsets) and at ragged shapes (N, KN not tile
-   multiples, G 1 and 4, window, segment ids, softcap, scalar and per-row
-   offsets, rows with no live key); flash decoding at the decode step's
-   shape and at ragged ones (lengths 0, 1 and S, G 1 and 4, softcap), and
-   its int8 variant.
+   forward, every case in f32 through the CUDA-core kernel and in bf16
+   through the tensor-core one, each launch's route and layout (as the C
+   entry reports them) and copies checked: at the prefill's shape (the cache page read in place through a
+   transposed view, no copy; per-row offsets) and at ragged shapes (N, KN
+   not tile multiples, G 1 and 4, window, segment ids, softcap, scalar and
+   per-row offsets, rows with no live key, D 40 / Dv 24 and D 36 / Dv 12);
+   a slot-minor cache 203 slots wide, q with a stride of 2 along D and q 2
+   bytes off 16 (each copied by the wrapper for the tensor cores); a bf16
+   head 160 wide (the CUDA-core kernel, by shape); causal at N = KN = 256
+   in rows (full key tiles that test no pair); flash decoding at the
+   decode step's shape and at ragged ones (lengths 0, 1 and S, G 1 and 4,
+   softcap), and its int8 variant.
 7. The serving LM at full width: 16 Transformer blocks, d_model 2048, 16
    query heads over 4 KV heads (head dim 128), RoPE, use_flash, a
    1,024-slot dense cache, weights from a seed (flax's initialisers), a
@@ -76,12 +82,16 @@ Phases (any failure raises and the script exits non-zero):
    generate; torch.profiler windows over one prefill and 8 decode steps
    (host wall time, device busy share, kernels by device time, the SM
    clock sampled by nvidia-smi meanwhile), which give each serving
-   kernel's device time per launch on the path (`path_ms`); each kernel at
-   its path's shape, each call timed alone by CUDA events after a 256 MB
-   write has evicted L2 (on the path a layer's weights stream through L2
-   between two attention calls), against its plain version, its bound and
-   one PyTorch call computing the same function
-   (scaled_dot_product_attention with a boolean mask) (`ms`); and the
+   kernel's device time per launch on the path (`path_ms`; the prefill's
+   flash launches on the tensor cores, none on the CUDA cores); each
+   kernel at its path's shape, each call timed alone by CUDA events after
+   a 256 MB write has evicted L2 (on the path a layer's weights stream
+   through L2 between two attention calls), against its plain version, its
+   bound and one PyTorch call computing the same function (`ms`;
+   scaled_dot_product_attention with a boolean mask, and for flash also
+   with is_causal=True under each fused backend whose output agrees with
+   the masked call's, all timed in turns, the fastest as `library_ms`);
+   and the
    decode kernel alone under the profiler too, warm and cold, so that
    `ms` and `path_ms` are also compared by one clock.
 
@@ -124,12 +134,15 @@ Phases (any failure raises and the script exits non-zero):
    `library_ms` is null.
 14. (After the serving models are freed.) The flash backward kernels (dq,
    and dk/dv) against their plain versions on the card, on the same o, lse
-   and delta: f32 rtol/atol 1e-4; bf16 rtol 2e-2 and atol 1e-2 of each
-   gradient's largest entry (p and ds are rounded to bf16 before their
-   products). Ragged N and KN, G 1 and 4, window, segment ids, softcap,
-   scalar and per-row offsets, dO through a transposed view, rows with no
-   live key (dq 0), and the training shape (B 8, H 16 over 4, N = KN =
-   1,024, D 128, causal).
+   and delta, f32 through the CUDA-core kernels and bf16 through the
+   tensor-core ones, each launch's route and the wrapper's copies checked:
+   f32 rtol/atol 1e-4; bf16 rtol 2e-2 and atol 1e-2 of each gradient's
+   largest entry (p and ds are rounded to bf16 before their products).
+   Ragged N and KN, G 1 and 4, window, segment ids, softcap, scalar and
+   per-row offsets, dO through a transposed view, rows with no live key
+   (dq 0), D 40 / Dv 24, D 36 / Dv 12 and D 32 / Dv 96, q strided or
+   misaligned (copied for the tensor cores), and the training shape (B 8,
+   H 16 over 4, N = KN = 1,024, D 128, causal).
 15. The 0.87B LM trained at full width through ku_torch.engine_ext.Trainer:
    the serving LM's blocks between a tied 1,024 x 2,048 embedding and
    readout, next-token cross-entropy on sequences that repeat a 64-token
@@ -140,18 +153,29 @@ Phases (any failure raises and the script exits non-zero):
    at batch 4, whose loss must be finite and fall. In bf16, batch 8 x
    1,024: 2 warm-up `train_step`s and 8 timed ones, losses finite. Every
    step launches the forward, dq and dk/dv kernels 32 times each (one per
-   attention sublayer) and no decode kernel. Peak memory of each part.
+   attention sublayer; bf16 on the tensor-core route) and no decode
+   kernel. Peak memory of each part.
 16. Training timing: train tokens/s from the median of the 8 steps (CUDA
    events); a torch.profiler window over one bf16 step (wall time, device
-   busy share, ops by device time, each flash kernel's device time a
-   launch: `path_ms`); the same step through the plain paths (dense
-   attention), 4 steps, as a yardstick; each backward kernel alone at the
-   training shape, cold in L2, against its bound (6·D operations a live
-   pair for dq, 8·D for dk/dv, at the bf16 tensor-core peak, or the bytes
-   at the memory rate), its plain version and `library_ms`: autograd
-   through scaled_dot_product_attention with the same causal mask, minus
-   that call's forward (it computes dq, dk and dv together). Each timed
-   call runs once untimed first.
+   busy share, ops by device time, each tensor-core flash kernel's device
+   time a launch: `path_ms`; no CUDA-core flash kernel may run); the same
+   step through the plain paths (dense attention), 4 steps, as a
+   yardstick; each flash instantiation's registers and spills (phase 2's
+   build output) and its count of tensor-core instructions (cuobjdump
+   -sass; each of the eight bf16 instantiations must have some); each
+   flash kernel alone at the training shape in bf16, cold in L2, against
+   its bound (4·D operations a live pair for the forward, 6·D for dq, 8·D
+   for dk/dv, at the bf16 tensor-core peak, or the bytes at the memory
+   rate), its plain version and `library_ms`: scaled_dot_product_attention
+   with the boolean causal mask and with is_causal=True under each fused
+   backend (flash, efficient, cudnn; K and V expanded to 16 heads where
+   one refuses GQA) whose output and gradients agree with the masked
+   call's, all timed in turns, the fastest; the backward as forward +
+   backward minus forward (dq, dk and dv together). The forward kernel's
+   output there is held against its plain version first (phase 6's
+   limits); the difference joins its entry's `max_abs_err`. The forward's numbers there join its
+   entry as `ms_train`, `path_ms_train`, `bound_ms_train` and
+   `library_ms_train`. Each timed call runs once untimed first.
 17. (After the training model is freed.) The block-sparse kernels
    (forward, dq, dk/dv) against their plain versions on the card, the
    backward on the forward kernel's o, lse and delta: every case in f32
@@ -194,8 +218,7 @@ Phases (any failure raises and the script exits non-zero):
    flex_attention, compiled, over a block mask from the same mask_mod
    (forward; forward + backward minus forward); then ku's sparse gate: the
    sparse kernels against the dense causal flash forward at 64k (ku's
-   sparse_vs_causal_speedup, now a tensor-core kernel against one still on
-   the CUDA cores).
+   sparse_vs_causal_speedup; both on the tensor cores, the route checked).
 
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -203,6 +226,7 @@ and power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -339,6 +363,103 @@ def wall_s(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def sdpa_ms(q, k, v, scale, mask, do=None, reps=10, rounds=5):
+    """scaled_dot_product_attention on (q, k, v), each call timed alone and
+    cold in L2 (timed_cold_ms): {backend: (forward ms, backward ms or None,
+    how it ran)}. "masked" passes the boolean `mask` to the default
+    dispatch; each fused backend (flash, efficient, cudnn) runs with
+    is_causal=True through sdpa_kernel, and with fewer queries than keys
+    (the prefill over its cache page) also over the first N keys alone: at
+    offset 0 causal query i reaches keys 0..i only, and on a square
+    is_causal has one alignment. (The backward is timed at N = KN only.) A
+    backend that refuses GQA or these strides gets K and V expanded to H
+    heads, contiguous, before the timed window; one that refuses that too
+    is left out. Each fused backend's output (and with `do` its gradients,
+    those of expanded K and V summed over each group) is first held against
+    the masked call's at twice phase 6's limits for the output and twice
+    phase 14's for the gradients: two bf16 results that each lie within a
+    limit of the exact function lie within twice it of each other, while
+    another function (a causal edge aligned otherwise) differs by the
+    values' own size. One that differs is left out. The backends are
+    then timed in turns, `rounds` rounds of `reps` calls each, so that a
+    drift of the card's clock reaches all alike; each time is the median of
+    its rounds' means. With `do`, the backward is forward + backward minus
+    forward (dq, dk and dv together). A yardstick only: nothing in ku_torch
+    calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, h, n, hkv, kn = q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    check(do is None or n == kn, "SDPA's backward is timed at N = KN only")
+    fused = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION)
+    runs = ([("masked", None, dict(attn_mask=mask), kn)]
+            + [(be.name.lower(), be, dict(is_causal=True), kn) for be in fused]
+            + [(f"{be.name.lower()}, first {n} keys", be, dict(is_causal=True), n)
+               for be in (fused if n < kn else ())])
+    timed, ref = {}, None
+    for name, backend, kw, keys in runs:
+        for expanded in (False, True):
+            kk, vv = ((t[:, :, :keys].repeat_interleave(h // hkv, dim=1).contiguous()
+                       for t in (k, v)) if expanded else (k[:, :, :keys], v[:, :, :keys]))
+            qr, kr, vr = (t.detach().requires_grad_(do is not None) for t in (q, kk, vv))
+
+            def fwd(qr=qr, kr=kr, vr=vr, backend=backend, kw=kw, gqa=not expanded):
+                with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
+                    return F.scaled_dot_product_attention(qr, kr, vr, scale=scale,
+                                                          enable_gqa=gqa, **kw)
+
+            grad = None if do is None else (
+                lambda fwd=fwd, ins=(qr, kr, vr): torch.autograd.grad(fwd(), ins, do))
+            try:
+                o = fwd()  # once untimed: workspaces, allocator
+                got = (o,) if do is None else (o,) + torch.autograd.grad(o, (qr, kr, vr), do)
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001 - a backend that refuses these inputs
+                log(f"  SDPA {name}{' (K/V expanded)' if expanded else ''} refused: "
+                    f"{str(e).strip().splitlines()[0][:100]}")
+                continue
+            break
+        else:
+            continue
+        got = tuple(t.detach() for t in got[:2]) + tuple(
+            t.detach().reshape(b, hkv, -1, *t.shape[2:]).sum(2, dtype=torch.float32)
+            .to(t.dtype) if t.shape[1] != hkv else t.detach() for t in got[2:])
+        if ref is None:  # the masked call, first
+            ref = got
+        else:
+            try:
+                torch.testing.assert_close(got[0], ref[0], rtol=2 * TOLS[q.dtype]["rtol"],
+                                           atol=2 * TOLS[q.dtype]["atol"])
+                for what, x, want in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+                    bwd_close(x, want, q.dtype, f"SDPA {name} {what}", twice=True)
+            except AssertionError as e:
+                log(f"  SDPA {name} differs from the masked call, left out: "
+                    + "; ".join(x.strip() for x in str(e).strip().splitlines()[:4])[:300])
+                continue
+        timed[name] = (fwd, grad, "K/V expanded to H heads" if expanded else "GQA")
+    check("masked" in timed, "SDPA with the boolean mask did not run")
+    fwd_ms = {name: [] for name in timed}
+    bwd_ms = {name: [] for name in timed}
+    for _ in range(rounds):
+        for name, (fwd, grad, _) in timed.items():
+            f_ms = timed_cold_ms(fwd, reps)
+            fwd_ms[name].append(f_ms)
+            if grad is not None:
+                bwd_ms[name].append(timed_cold_ms(grad, reps) - f_ms)
+    for name in timed:
+        log(f"  SDPA {name}: forward rounds {[round(x, 4) for x in fwd_ms[name]]}"
+            + (f", backward rounds {[round(x, 4) for x in bwd_ms[name]]}" if do is not None
+               else ""))
+    return {name: (float(np.median(fwd_ms[name])),
+                   float(np.median(bwd_ms[name])) if do is not None else None, how)
+            for name, (_, _, how) in timed.items()}
+
+
+def sdpa_line(times) -> str:
+    return "; ".join(f"{k} ({how}) fwd {f:.4f}" + ("" if b is None else f", bwd {b:.4f}")
+                     for k, (f, b, how) in times.items())
 
 
 # ---------------------------------------------------------------------------
@@ -771,18 +892,26 @@ def _max_diff(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def flash_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
+def flash_case(dev, dtype, b, h, hkv, n, kn, d, *, dv=None, causal=True, window=None,
                softcap=None, segments=False, q_offset=None, k_offset=None,
-               cache_view=False, seed=0) -> float:
-    """One flash forward, kernel against plain on the same inputs."""
+               cache_view=False, q_layout=None, seed=0) -> float:
+    """One flash forward, kernel against plain on the same inputs; the
+    launch's route (bf16 up to 128 wide on the tensor cores, else the CUDA
+    cores) and, on the tensor cores, its layout and copies checked: none in
+    layouts "a" (rows) and "b" (the slot-minor cache read in place), each
+    tensor not in rows copied in "c". `q_layout`: q in a layout the
+    tensor-core kernel cannot read as it is (q_in_layout)."""
+    dv = dv or d
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    if q_layout:
+        q = q_in_layout(q, q_layout)
     if cache_view:  # the prefill's read of the slot-minor cache page
         k = torch.randn(b, hkv, d, kn, generator=g, device=dev).to(dtype).transpose(2, 3)
-        v = torch.randn(b, hkv, d, kn, generator=g, device=dev).to(dtype).transpose(2, 3)
+        v = torch.randn(b, hkv, dv, kn, generator=g, device=dev).to(dtype).transpose(2, 3)
     else:
         k = torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype)
-        v = torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, hkv, kn, dv, generator=g, device=dev).to(dtype)
     seg = None
     if segments:
         seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=dev),
@@ -790,16 +919,26 @@ def flash_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
     kw = dict(softmax_scale=1.0 / math.sqrt(h * d), causal=causal, window=window,
               segment_ids=seg, q_offset=q_offset, k_offset=k_offset,
               logit_softcap=softcap)
+    route = fa.flash_route(dtype, d)
+    layout = fa.flash_layout(q, k, v) if route == "mma" else None
+    copies = fa.flash_fwd_cuda.copies
     o_k, lse_k = fa.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
+    copied = fa.flash_fwd_cuda.copies - copies
+    check((fa.flash_fwd_cuda.route, fa.flash_fwd_cuda.layout) == (route, layout),
+          f"flash forward took {fa.flash_fwd_cuda.route}/{fa.flash_fwd_cuda.layout}, "
+          f"not {route}/{layout}")
+    check((copied > 0) == (layout == "c"), f"layout {layout} with {copied} copies")
     o_p, lse_p = fa.flash_fwd_torch(q, k, v, **kw)
     torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
     torch.testing.assert_close(lse_k, lse_p, rtol=1e-4, atol=1e-4)
     diff = _max_diff(o_k, o_p)
-    log(f"  flash {str(dtype)[6:]} B{b} H{h}/{hkv} N{n} KN{kn} D{d} causal {causal} "
-        f"window {window} softcap {softcap} segments {segments} "
-        f"offsets {'rows' if torch.is_tensor(q_offset) else q_offset}: "
-        f"max abs diff out {diff:.3e}, lse {_max_diff(lse_k, lse_p):.3e}")
+    log(f"  flash {str(dtype)[6:]} ({route}{'/' + layout if layout else ''}, {copied} "
+        f"copies) B{b} H{h}/{hkv} N{n} KN{kn} D{d} Dv{dv} causal {causal} window {window} "
+        f"softcap {softcap} segments {segments} "
+        f"offsets {'rows' if torch.is_tensor(q_offset) else q_offset} q layout "
+        f"{q_layout or 'as made'}: max abs diff out {diff:.3e}, lse "
+        f"{_max_diff(lse_k, lse_p):.3e}")
     return diff
 
 
@@ -855,6 +994,24 @@ def serving_kernels_vs_plain(dev):
         flash = max(flash, flash_case(dev, dtype, 2, 2, 1, 70, 70, 32, k_offset=10,
                                       q_offset=torch.tensor([0, -80], dtype=torch.int32,
                                                             device=dev), seed=5))
+        # Widths the tensor-core tiles zero-fill; a slot-minor cache whose
+        # width is not a multiple of 8 and q in two layouts, all three copied
+        # for the tensor cores (layout "c"); a bf16 head wider than 128 (the
+        # CUDA cores, by shape).
+        flash = max(flash, flash_case(dev, dtype, 2, 4, 2, 70, 90, 40, dv=24, window=30,
+                                      seed=6))
+        flash = max(flash, flash_case(dev, dtype, 1, 2, 2, 64, 128, 36, dv=12, seed=7))
+        flash = max(flash, flash_case(dev, dtype, 2, 4, 2, 33, 203, 128, cache_view=True,
+                                      q_offset=torch.tensor([0, 150], dtype=torch.int32,
+                                                            device=dev), seed=8))
+        flash = max(flash, flash_case(dev, dtype, 1, 4, 2, 65, 65, 64, q_layout="strided",
+                                      seed=9))
+        flash = max(flash, flash_case(dev, dtype, 1, 2, 1, 40, 70, 64, q_layout="offset",
+                                      softcap=5.0, seed=10))
+        flash = max(flash, flash_case(dev, dtype, 1, 2, 1, 50, 70, 160, dv=128, seed=11))
+        # Causal with no segments, window or ragged edge, rows along D (layout
+        # "a"): the key tiles below the diagonal are full and test no pair.
+        flash = max(flash, flash_case(dev, dtype, 2, 4, 2, 256, 256, 128, seed=12))
         # The decode step's shape: 8 rows, 4 KV heads of 4 query heads each,
         # the 1,024-slot cache, ragged live prefixes.
         decode = max(decode, decode_case(dev, dtype, GEN_B, LM_KV_HEADS, 4, 128,
@@ -1051,7 +1208,9 @@ def profile_path(lm, embed, readout, prompts, lens, steps=8, decode_key="DenseRo
     prefill()  # warm the profiler's first-use costs out of the window
     wall, rows, clocks = profiled(prefill)
     log_profile("one prefill", wall, rows, clocks)
-    flash_path_ms = per_launch_ms(rows, "flash_fwd_kernel")
+    check(not any("flash_fwd_kernel" in r[2] for r in rows),
+          "the CUDA-core flash forward ran in the bf16 prefill")
+    flash_path_ms = per_launch_ms(rows, "flash_fwd_wgmma_kernel")
 
     y, cache = prefill()
     tok = readout(y[torch.arange(GEN_B, device=y.device), lens.long() - 1][:, None]
@@ -1431,9 +1590,14 @@ def serving_path(dev, name) -> list:
                         prompt_lengths=lens, return_logprobs=True)
 
     zero_counts()
+    copies = fa.flash_fwd_cuda.copies
     ids, lps = gen(GEN_STEPS)
     torch.cuda.synchronize()
     gen_flash, gen_decode, gen_paged = counts()
+    check((fa.flash_fwd_cuda.route, fa.flash_fwd_cuda.layout) == ("mma", "b")
+          and fa.flash_fwd_cuda.copies == copies,
+          f"generate's prefill took {fa.flash_fwd_cuda.route}/{fa.flash_fwd_cuda.layout} "
+          f"with {fa.flash_fwd_cuda.copies - copies} copies, not the cache in place")
     check(gen_paged == 0, f"dense generate launched the paged kernel {gen_paged} times")
     check(ids.shape == (GEN_B, GEN_STEPS) and lps.shape == (GEN_B, GEN_STEPS),
           f"generate shapes {tuple(ids.shape)}, {tuple(lps.shape)}")
@@ -1514,10 +1678,15 @@ def serving_path(dev, name) -> list:
     causal_mask = (torch.arange(LM_MAX_LEN, device=dev)[None, :]
                    <= torch.arange(GEN_P, device=dev)[:, None])[None, None].expand(
                        GEN_B, 1, GEN_P, LM_MAX_LEN)
+    copies = fa.flash_fwd_cuda.copies
     flash_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, kT, vT, **fkw), 60)
+    check((fa.flash_fwd_cuda.route, fa.flash_fwd_cuda.layout) == ("mma", "b")
+          and fa.flash_fwd_cuda.copies == copies,
+          "the prefill's cache view did not go to the tensor cores in place")
     flash_plain_ms = timed_cold_ms(lambda: fa.flash_fwd_torch(q, kT, vT, **fkw), 6)
-    flash_lib_ms = timed_cold_ms(lambda: F.scaled_dot_product_attention(
-        q, kT, vT, attn_mask=causal_mask, scale=scale, enable_gqa=True), 60)
+    with torch.no_grad():
+        prefill_sdpa = sdpa_ms(q, kT, vT, scale, causal_mask, reps=60)
+    flash_lib_ms = min(f for f, _, _ in prefill_sdpa.values())
     flash_bound_ms, flash_by = flash_bound(GEN_B, LM_HEADS, LM_KV_HEADS, GEN_P, hd,
                                            [0] * GEN_B, 2, peak_bf16, peak_bw)
     mid = lens + GEN_STEPS // 2
@@ -1545,8 +1714,9 @@ def serving_path(dev, name) -> list:
     log(f"profile, 64 standalone decode launches: {alone_warm_ms:.4f} ms each warm, "
         f"{alone_cold_ms:.4f} ms each cold; SM clock {clock_range(clocks)}")
     log(f"flash_fwd at B{GEN_B} H{LM_HEADS}/{LM_KV_HEADS} N{GEN_P} KN{LM_MAX_LEN} "
-        f"D{hd} bf16, offset 0, cold L2: kernel {flash_ms:.4f} ms, plain "
-        f"{flash_plain_ms:.4f} ms, SDPA {flash_lib_ms:.4f} ms, bound "
+        f"D{hd} bf16, offset 0, cold L2: kernel (mma, the cache read in place) "
+        f"{flash_ms:.4f} ms, plain {flash_plain_ms:.4f} ms, SDPA fastest "
+        f"{flash_lib_ms:.4f} ms ({sdpa_line(prefill_sdpa)}), bound "
         f"{flash_bound_ms:.5f} ms ({flash_by}); on the path (profiler, prefill "
         f"lengths {lens_np.tolist()}) {flash_path_ms:.4f} ms a launch")
     log(f"decode_attention at B{GEN_B} Hkv{LM_KV_HEADS} G4 D{hd} S{LM_MAX_LEN} bf16, "
@@ -1596,27 +1766,38 @@ def serving_path(dev, name) -> list:
 # order (rtol/atol 1e-4); bf16 rtol 2e-2 and atol 1e-2 of the largest
 # entry, since p and ds are rounded to bf16 before their products and an
 # f32 ulp in a score can move one of those roundings (2^-8 of the value).
-def bwd_close(got, want, dtype, what):
+def bwd_close(got, want, dtype, what, twice=False):
+    """Phase 14's limits (`twice`: twice them, for two results that each
+    carry their own rounding, sdpa_ms)."""
+    f = 2 if twice else 1
     if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=what)
+        torch.testing.assert_close(got, want, rtol=f * 1e-4, atol=f * 1e-4, msg=what)
     else:
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=1e-2 * float(want.float().abs().max()), msg=what)
+        torch.testing.assert_close(got.float(), want.float(), rtol=f * 2e-2,
+                                   atol=f * 1e-2 * float(want.float().abs().max()), msg=what)
 
 
-def bwd_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
+def bwd_case(dev, dtype, b, h, hkv, n, kn, d, *, dv=None, causal=True, window=None,
              softcap=None, segments=False, q_offset=None, k_offset=None,
-             strided_do=False, seed=0):
+             strided_do=False, q_layout=None, seed=0):
     """Both backward kernels against their plain versions on the same
-    inputs (o and lse from the forward kernel); returns the largest abs
-    difference of (dq, dk/dv)."""
+    inputs (o and lse from the forward kernel), bf16 through the
+    tensor-core kernels and f32 through the CUDA-core ones, each launch's
+    route checked, and the wrapper's copies: on the tensor cores, one of
+    each tensor whose rows are not 16-byte runs (q in `q_layout`, see
+    q_in_layout; heads not a multiple of 8 wide), else none. Returns the
+    largest abs difference of (dq, dk/dv)."""
+    dv = dv or d
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
-    k, v = (torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    if q_layout:
+        q = q_in_layout(q, q_layout)
+    k = torch.randn(b, hkv, kn, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, hkv, kn, dv, generator=g, device=dev).to(dtype)
     if strided_do:  # as autograd hands it over, through the heads' transpose
-        do = torch.randn(b, n, h, d, generator=g, device=dev).to(dtype).transpose(1, 2)
+        do = torch.randn(b, n, h, dv, generator=g, device=dev).to(dtype).transpose(1, 2)
     else:
-        do = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+        do = torch.randn(b, h, n, dv, generator=g, device=dev).to(dtype)
     seg = None
     if segments:
         seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=dev),
@@ -1626,23 +1807,33 @@ def bwd_case(dev, dtype, b, h, hkv, n, kn, d, *, causal=True, window=None,
               logit_softcap=softcap)
     o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
     delta = fa._delta(o, do)
+    copies = [kn_.copies for kn_ in BWD_KERNELS]
     dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv_ = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
+    route = fa.flash_route(dtype, d)
+    check([kn_.route for kn_ in BWD_KERNELS] == [route] * 2,
+          f"backward launches took {[kn_.route for kn_ in BWD_KERNELS]}, not {route}")
+    copied = [kn_.copies - c for kn_, c in zip(BWD_KERNELS, copies)]
+    want = sum(not fa._mma_ready(t) for t in (q, k, v, do)) if route == "mma" else 0
+    check(copied == [want] * 2 and (want > 0) == (route == "mma" and (
+        bool(q_layout) or d % 8 > 0 or dv % 8 > 0)),
+          f"backward copies {copied}, expected {want} each, q layout {q_layout}")
     dq_p = fa.flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
     dk_p, dv_p = fa.flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
-    for what, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+    for what, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv_, dv_p)):
         check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"{what} not finite")
         bwd_close(got, want, dtype, what)
     dead = lse == fa._MASKED  # rows with no live key
     check(bool((dq.float().abs().sum(-1) * dead).sum() == 0), "a dead row has dq != 0")
-    diffs = (_max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv, dv_p)))
-    log(f"  flash bwd {str(dtype)[6:]} B{b} H{h}/{hkv} N{n} KN{kn} D{d} causal {causal} "
-        f"window {window} softcap {softcap} segments {segments} offsets "
+    diffs = (_max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv_, dv_p)))
+    log(f"  flash bwd {str(dtype)[6:]} ({route}) B{b} H{h}/{hkv} N{n} KN{kn} D{d} Dv{dv} "
+        f"causal {causal} window {window} softcap {softcap} segments {segments} offsets "
         f"{'rows' if torch.is_tensor(q_offset) else q_offset}/{k_offset} strided dO "
-        f"{strided_do}, {int(dead.sum())} dead rows: max abs diff dq {diffs[0]:.3e} "
-        f"(largest {float(dq_p.float().abs().max()):.3e}), dk/dv {diffs[1]:.3e} "
-        f"(largest {float(torch.maximum(dk_p.float().abs().max(), dv_p.float().abs().max())):.3e})")
+        f"{strided_do} q layout {q_layout or 'as made'}, {int(dead.sum())} dead rows: "
+        f"max abs diff dq {diffs[0]:.3e} (largest {float(dq_p.float().abs().max()):.3e}), "
+        f"dk/dv {diffs[1]:.3e} (largest "
+        f"{float(torch.maximum(dk_p.float().abs().max(), dv_p.float().abs().max())):.3e})")
     return diffs
 
 
@@ -1664,6 +1855,14 @@ def backward_kernels_vs_plain(dev):
             # tile, all of row 1 with no tile visited.
             dict(b=2, h=2, hkv=1, n=70, kn=70, d=32, k_offset=10,
                  q_offset=rows(0, -80), seed=5),
+            # Widths the tensor-core tiles zero-fill, D != Dv both ways; q in
+            # layouts the wrapper copies for the tensor cores.
+            dict(b=2, h=4, hkv=2, n=70, kn=90, d=40, dv=24, window=30, seed=7),
+            dict(b=1, h=2, hkv=2, n=64, kn=128, d=36, dv=12, strided_do=True, seed=8),
+            dict(b=1, h=2, hkv=1, n=65, kn=65, d=32, dv=96, window=20, seed=9),
+            dict(b=1, h=4, hkv=2, n=65, kn=65, d=64, q_layout="strided", seed=10),
+            dict(b=1, h=2, hkv=1, n=40, kn=70, d=64, q_layout="offset", softcap=5.0,
+                 seed=11),
             # The training step's shape.
             dict(b=TRAIN_B, h=LM_HEADS, hkv=LM_KV_HEADS, n=TRAIN_N, kn=TRAIN_N,
                  d=LM_D // LM_HEADS, strided_do=True, seed=6),
@@ -1815,8 +2014,9 @@ def bwd_bound(which, b, h, hkv, n, d, itemsize, peak_bf16, peak_bw):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def training_path(dev, name) -> list:
-    """Phases 14-16; returns the entries of the two backward kernels."""
+def training_path(dev, name, fwd_entry) -> list:
+    """Phases 14-16; returns the entries of the two backward kernels and
+    adds the training shape's numbers to the forward's (`fwd_entry`)."""
     dq_err, dkv_err = backward_kernels_vs_plain(dev)
     _, peak_bf16, peak_bw = peaks(name)
 
@@ -1842,6 +2042,8 @@ def training_path(dev, name) -> list:
     losses, step_ms = timed_steps(tr, x, y, TRAIN_TIMED)
     launches = train_counts()
     check_step_launches(2 + TRAIN_TIMED, "bf16 train_step")
+    routes = [kn.route for kn in (fa.flash_fwd_cuda,) + BWD_KERNELS]
+    check(routes == ["mma"] * 3, f"bf16 steps' flash launches took {routes}")
     check(all(math.isfinite(v) for v in losses), f"bf16 losses {losses}")
     median_ms = float(np.median(step_ms))
     tokens_per_s = TRAIN_B * TRAIN_N / (median_ms / 1e3)
@@ -1851,15 +2053,19 @@ def training_path(dev, name) -> list:
     log(f"train: step {median_ms:.3f} ms median of {TRAIN_TIMED} (CUDA events; "
         f"{step_ms[0]:.3f}..{step_ms[-1]:.3f}), {tokens_per_s:.1f} tokens/s")
 
-    # 16. Where a step's time goes, and each backward kernel alone.
+    # 16. Where a step's time goes, and each flash kernel alone.
     wall, rows, clocks = profiled(lambda: tr.train_step(x, y))
     log_profile("one bf16 train step", wall, rows, clocks)
-    path = {k: per_launch_ms(rows, k) for k in
-            ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    check(not any(re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel", r[2]) for r in rows),
+          "a CUDA-core (f32) flash kernel ran in the bf16 step")
+    names = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+    path = {k: per_launch_ms(rows, k) for k in names}
     attn_us = sum(r[0] for r in rows if "flash_" in r[2])
-    log(f"profile: attention kernels {attn_us / 1e3:.3f} ms of {sum(r[0] for r in rows) / 1e3:.3f} "
-        f"ms device time; a launch on the path: fwd {path['flash_fwd_kernel']:.4f} ms, "
-        f"dq {path['flash_bwd_dq_kernel']:.4f} ms, dk/dv {path['flash_bwd_dkv_kernel']:.4f} ms")
+    device_us = sum(r[0] for r in rows)
+    log(f"profile: flash kernels (tensor cores) {attn_us / 1e3:.3f} ms of "
+        f"{device_us / 1e3:.3f} ms device time ({attn_us / device_us:.3f}); a launch on "
+        f"the path: fwd {path[names[0]]:.4f} ms, dq {path[names[1]]:.4f} ms, dk/dv "
+        f"{path[names[2]]:.4f} ms")
     # The same step through the plain paths (use_flash=False: dense
     # attention, cuBLAS products), as a yardstick for the whole step.
     set_attention_paths(lm, False)
@@ -1882,6 +2088,19 @@ def training_path(dev, name) -> list:
     del tr, lm
     torch.cuda.empty_cache()
 
+    # Each flash instantiation's registers and spills (phase 2's build
+    # output) and its count of tensor-core instructions.
+    for lib_name, source in ((fa.NAME, fa.SOURCE), (fa.BWD_NAME, fa.BWD_SOURCE)):
+        sass = sass_mma_counts(_build.library_path(source, lib_name))
+        table = ptxas_kernels(BUILD_REPORTS.get(lib_name, ""))
+        check(table, f"no ptxas report of {lib_name}")
+        for kn, regs, st, ld in table:
+            log(f"  ptxas {kn}: {regs} registers, spill stores {st} bytes, spill loads {ld} "
+                f"bytes; {sass.get(kn, 'no')} HMMA/HGMMA instructions in its SASS")
+        tensor = {kn: n for kn, n in sass.items() if "_wgmma_" in kn}
+        check(len(tensor) == 4 and all(tensor.values()),
+              f"tensor-core instructions by kernel in {lib_name}: {sass}")
+
     gen = torch.Generator(device=dev).manual_seed(13)
     bf, hd = torch.bfloat16, LM_D // LM_HEADS
     q = torch.randn(TRAIN_B, LM_HEADS, TRAIN_N, hd, generator=gen, device=dev).to(bf)
@@ -1890,32 +2109,61 @@ def training_path(dev, name) -> list:
     do = torch.randn(TRAIN_B, LM_HEADS, TRAIN_N, hd, generator=gen, device=dev).to(bf)
     kw = dict(softmax_scale=1.0 / math.sqrt(LM_D), causal=True)
     o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    check((fa.flash_fwd_cuda.route, fa.flash_fwd_cuda.layout) == ("mma", "a"),
+          f"the training-shape forward took {fa.flash_fwd_cuda.route}/{fa.flash_fwd_cuda.layout}")
+    # The forward the train step launches, against its plain version at the
+    # step's shape (phase 6's limits); its difference joins the entry's
+    # max_abs_err.
+    o_p, lse_p = fa.flash_fwd_torch(q, k, v, **kw)
+    torch.testing.assert_close(o, o_p, **TOLS[bf])
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    fwd_err = _max_diff(o, o_p)
+    log(f"flash_fwd at the training shape, kernel vs plain: max abs diff out {fwd_err:.3e}, "
+        f"lse {_max_diff(lse, lse_p):.3e}")
+    del o_p, lse_p
     delta = fa._delta(o, do)
     args = (q, k, v, do, lse, delta)
     mask = (torch.arange(TRAIN_N, device=dev)[None, :]
             <= torch.arange(TRAIN_N, device=dev)[:, None])[None, None].expand(
                 TRAIN_B, 1, TRAIN_N, TRAIN_N)
-    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qr, kr, vr, attn_mask=mask, scale=kw["softmax_scale"], enable_gqa=True)
-    sdpa_grad = lambda: torch.autograd.grad(sdpa(), (qr, kr, vr), do)  # noqa: E731
-    sdpa_grad()  # each call timed below runs once first (workspaces, allocator)
-    lib_fwd_ms = timed_cold_ms(sdpa, 10)
-    lib_ms = timed_cold_ms(sdpa_grad, 10) - lib_fwd_ms
+    train_sdpa = sdpa_ms(q, k, v, kw["softmax_scale"], mask, do=do)
+    lib_fwd_ms = min(f for f, _, _ in train_sdpa.values())
+    lib_ms = min(b for _, b, _ in train_sdpa.values())
+    log(f"SDPA at B{TRAIN_B} H{LM_HEADS}/{LM_KV_HEADS} N=KN={TRAIN_N} D{hd} bf16 causal, cold "
+        f"L2: {sdpa_line(train_sdpa)}; fastest forward {lib_fwd_ms:.4f} ms, backward "
+        f"{lib_ms:.4f} ms (the masked ones kept as earlier PRs measured them)")
+
+    # The forward alone at the training shape (phase 8 times it at the
+    # prefill's): its entry gains the *_train numbers.
+    fwd_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw), 10)
+    fa.flash_fwd_torch(q, k, v, **kw)
+    fwd_plain_ms = timed_cold_ms(lambda: fa.flash_fwd_torch(q, k, v, **kw), 3)
+    fwd_bound_ms, fwd_by = flash_bound(TRAIN_B, LM_HEADS, LM_KV_HEADS, TRAIN_N, hd,
+                                       [0] * TRAIN_B, 2, peak_bf16, peak_bw)
+    log(f"flash_fwd at B{TRAIN_B} H{LM_HEADS}/{LM_KV_HEADS} N=KN={TRAIN_N} D{hd} bf16 causal, "
+        f"cold L2: kernel (mma) {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, bound "
+        f"{fwd_bound_ms:.5f} ms ({fwd_by}); on the path (profiler) {path[names[0]]:.4f} ms a "
+        f"launch; SDPA forward fastest {lib_fwd_ms:.4f} ms, masked "
+        f"{train_sdpa['masked'][0]:.4f} ms")
+    fwd_entry.update(max_abs_err=max(fwd_entry["max_abs_err"], fwd_err), ms_train=fwd_ms, path_ms_train=path[names[0]], plain_ms_train=fwd_plain_ms,
+                     bound_ms_train=fwd_bound_ms, bound_by_train=fwd_by,
+                     library_ms_train=lib_fwd_ms)
     entries = []
     for which, kernel, plain, err in (
             ("dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_torch, dq_err),
             ("dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_torch, dkv_err)):
         ms = timed_cold_ms(lambda: kernel(*args, **kw), 10)
+        check(kernel.route == "mma", f"flash_bwd_{which} at the training shape took {kernel.route}")
         plain(*args, **kw)
         plain_ms = timed_cold_ms(lambda: plain(*args, **kw), 3)
         bound_ms, bound_by = bwd_bound(which, TRAIN_B, LM_HEADS, LM_KV_HEADS, TRAIN_N, hd,
                                        2, peak_bf16, peak_bw)
-        path_ms = path[f"flash_bwd_{which}_kernel"]
+        path_ms = path[f"flash_bwd_{which}_wgmma_kernel"]
         log(f"flash_bwd_{which} at B{TRAIN_B} H{LM_HEADS}/{LM_KV_HEADS} N=KN={TRAIN_N} "
-            f"D{hd} bf16 causal, cold L2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}); on the path (profiler) {path_ms:.4f} ms a "
-            f"launch; SDPA backward (fwd+bwd minus fwd, dq/dk/dv together) {lib_ms:.4f} ms")
+            f"D{hd} bf16 causal, cold L2: kernel (mma) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}); on the path (profiler) {path_ms:.4f} ms a "
+            f"launch; SDPA backward (fwd+bwd minus fwd, dq/dk/dv together) fastest "
+            f"{lib_ms:.4f} ms, masked {train_sdpa['masked'][1]:.4f} ms")
         entries.append({
             "name": f"flash_bwd_{which}",
             "route": "cuda",
@@ -1929,7 +2177,8 @@ def training_path(dev, name) -> list:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # One SDPA backward computes dq, dk and dv together.
+            # One SDPA backward computes dq, dk and dv together: the fastest
+            # backend's.
             "library_ms": lib_ms,
         })
     log(f"max abs diff kernel vs plain: dq {dq_err:.3e}, dk/dv {dkv_err:.3e}; f32 LM "
@@ -2016,7 +2265,7 @@ def sparse_case(dev, dtype, b, h, hkv, d, dv, mask, *, poison=False, strided_do=
               "an unattended key block has dk or dv != 0")
     dead = lse == fa._MASKED  # rows with no live key
     check(bool((o[dead] == 0).all() and (dq[dead] == 0).all()), "a dead row has o or dq != 0")
-    route = sa._route(dtype)
+    route = fa.flash_route(dtype, d)
     check([kn.route for kn in SPARSE_KERNELS] == [route] * 3,
           f"sparse launches took {[kn.route for kn in SPARSE_KERNELS]}, not {route}")
     diffs = (_max_diff(o, o_p), _max_diff(dq, dq_p), max(_max_diff(dk, dk_p), _max_diff(dv_, dv_p)))
@@ -2136,15 +2385,27 @@ def flex_ms(q, k, v, do, scale):
     return fwd_ms, timed_cold_ms(grad, 10) - fwd_ms, out
 
 
+# An instantiation's mangled name: the kernel, an element type (f: float,
+# 13__nv_bfloat16: bf16) or none, the width, and a bool (layout "b") or none.
+_INSTANCE = r"\w*?([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)?Li(\d+)E(?:Lb([01])E)?"
+
+
+def _instance(m) -> str:
+    """`sparse_fwd_wgmma_kernel<128>`, `sparse_fwd_kernel<float, 64>`,
+    `flash_fwd_kernel<bf16, 128>` or `flash_fwd_wgmma_kernel<128, true>`."""
+    dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
+    flag = {"0": ", false", "1": ", true"}.get(m[4], "")
+    return f"{m[1]}<{dtype}{m[3]}{flag}>"
+
+
 def ptxas_kernels(report):
     """[(kernel, registers, spill store bytes, spill load bytes)] from nvcc's
-    -Xptxas -v output, one entry per instantiation, named as
-    `sparse_fwd_wgmma_kernel<128>` or `sparse_fwd_kernel<float, 64>`."""
+    -Xptxas -v output, one entry per instantiation (named by _instance)."""
     out, kernel, spills = [], None, (0, 0)
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)I(f)?Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '" + _INSTANCE, line)
         if m:
-            kernel = f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+            kernel = _instance(m)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -2165,9 +2426,9 @@ def sass_mma_counts(library):
                           text=True).stdout
     counts, kernel = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \w*?([a-z][a-z_]*_kernel)I(f)?Li(\d+)E", line)
+        m = re.search(r"Function : " + _INSTANCE, line)
         if m:
-            kernel = f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+            kernel = _instance(m)
             counts[kernel] = 0
         elif kernel and re.search(r"\bH(G)?MMA\b", line):
             counts[kernel] += 1
@@ -2313,6 +2574,10 @@ def sparse_training_path(dev, name) -> list:
     fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale, causal=True)
     causal_ms = timed_cold_ms(lambda: fa.flash_fwd_cuda(q, k, v, softmax_scale=gscale,
                                                         causal=True), 2)
+    check(fa.flash_fwd_cuda.route == "mma",
+          f"the gate's dense causal forward took {fa.flash_fwd_cuda.route}")
+    causal_bound_ms, causal_by = flash_bound(1, GATE_H, GATE_H, GATE_N, GATE_D, [0], 2,
+                                             peak_bf16, peak_bw)
     gpairs = sa.kept_pairs(gmask) * GATE_H
     bounds = [sparse_bound(w, 1, GATE_H, GATE_H, GATE_N, GATE_N, GATE_D, GATE_D, gpairs, 2,
                            peak_bf16, peak_bw)[0] for w in ("fwd", "dq", "dkv")]
@@ -2320,9 +2585,10 @@ def sparse_training_path(dev, name) -> list:
         f"{SP_SINKS} sinks ({gmask.fmap.shape[0]} entries, {1 - gmask.sparsity:.4f} of the "
         f"square, {gpairs} kept pairs), cold L2: sparse fwd {fwd_ms:.4f} ms, dq "
         f"{dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms (bounds {bounds[0]:.5f}, {bounds[1]:.5f}, "
-        f"{bounds[2]:.5f} ms; routes {routes}); dense causal flash forward {causal_ms:.4f} ms: "
-        f"sparse_vs_causal_speedup {causal_ms / fwd_ms:.3f} (a bf16 tensor-core sparse "
-        f"forward against the flash forward, still on the CUDA cores)")
+        f"{bounds[2]:.5f} ms; routes {routes}); dense causal flash forward {causal_ms:.4f} ms "
+        f"(bound {causal_bound_ms:.5f} ms, {causal_by}): sparse_vs_causal_speedup "
+        f"{causal_ms / fwd_ms:.3f} (the bf16 sparse forward against the dense causal one, "
+        f"both on the tensor cores)")
     log(f"max abs diff kernel vs plain: sparse o {errs[0]:.3e}, dq {errs[1]:.3e}, dk/dv "
         f"{errs[2]:.3e}; f32 LM gradients under the mask through the kernels vs the plain "
         f"versions {grad_err:.3e} of each tensor's largest entry")
@@ -2364,7 +2630,7 @@ def main() -> int:
     del V, fitted
     kernels += serving_path(dev, name)
     torch.cuda.empty_cache()  # the serving models are gone with serving_path
-    kernels += training_path(dev, name)
+    kernels += training_path(dev, name, next(e for e in kernels if e["name"] == "flash_fwd"))
     torch.cuda.empty_cache()  # the dense-attention training model is gone
     kernels += sparse_training_path(dev, name)
 

@@ -14,10 +14,15 @@
 // side (columns 16 kk .. 16 kk + 15 of S) are, rounded and packed, the A
 // operand of the next product (P V, dS K) with no trip through shared
 // memory: FlashAttention-2's scheme (pack_a below).
+//
+// Shared by the block-sparse kernels (sparse_attention.cu) and the dense
+// flash kernels (flash_fwd.cu, flash_bwd.cu); the latter also take the
+// dense masks at the end of this file.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace attn_mma {
@@ -81,6 +86,26 @@ __device__ __forceinline__ void store_pair(bf16* row, int col, int width, float 
   }
 }
 
+// The dynamic shared memory's first 1024-byte boundary (the launch asks for
+// 1 KB more): swizzled tiles start on one.
+__device__ __forceinline__ bf16* swizzle_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// Whether the kernels can copy a (B, heads, rows, width) tensor at p with
+// element strides s[4] 16 bytes at a time along axis `unit` (3: rows
+// unit-stride along the width; 2: runs along the rows, as the slot-minor
+// KV cache's keys): stride 1 there, every other axis longer than 1 a
+// stride of a multiple of 8 elements, and a 16-byte-aligned start. Host
+// code: the C entries check their tensors with it.
+inline bool runs_aligned(const void* p, const long long* s, int b, int heads, int rows,
+                         int width, int unit) {
+  const int dims[4] = {b, heads, rows, width};
+  if (reinterpret_cast<uintptr_t>(p) % 16 || s[unit] != 1) return false;
+  for (int i = 0; i < 4; ++i)
+    if (i != unit && dims[i] > 1 && s[i] % 8) return false;
+  return true;
+}
 
 // ---------------------------------------------------------------------------
 // Tiles are stored in wgmma's 128-byte swizzled layout (load_tile_sw128):
@@ -194,15 +219,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float d[][4], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x 64, f32) += A . B^T, one k16 step: A and B K-major in shared
-// memory (desc_k).
+// d (64 x 64, f32) += A . B^T, one k16 step: A K-major in shared memory
+// (desc_k); B K-major (desc_k, TRANS_B 0) or MN-major, stored with the
+// step's K along its rows and its 64 N columns unit-stride (desc_mn,
+// TRANS_B 1: the slot-minor cache's keys).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float d[][4], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -211,18 +239,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float d[][4], uint64_t a, uint64_t 
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
 // d (64 x 64, f32) += A . B, one k16 step: A in registers (each warp's 16
-// rows, pack_a), B MN-major in shared memory (desc_mn, read transposed).
+// rows, pack_a), B MN-major in shared memory (desc_mn, read transposed:
+// TRANS_B 1) or K-major, its N rows unit-stride along the step's K
+// (desc_k, TRANS_B 0: the slot-minor cache's values).
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float d[][4], const uint32_t a[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -231,11 +262,11 @@ __device__ __forceinline__ void wgmma_rs_n64(float d[][4], const uint32_t a[4], 
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
-// d (64 x 128, f32) += A . B, one k16 step: A in registers (each warp's 16
-// rows, pack_a), B MN-major in shared memory (desc_mn, read transposed).
+// d (64 x 128, f32) += A . B, one k16 step: as wgmma_rs_n64.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs_n128(float d[][4], const uint32_t a[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -244,7 +275,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float d[][4], const uint32_t a[4],
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
       "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
       "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -261,17 +292,90 @@ __device__ __forceinline__ void wgmma_rs_n128(float d[][4], const uint32_t a[4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
 // wgmma_rs_n64 or _n128 by N.
-template <int N>
+template <int N, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs(float d[][4], const uint32_t a[4], uint64_t b) {
   static_assert(N == 64 || N == 128, "N");
   if constexpr (N == 128)
-    wgmma_rs_n128(d, a, b);
+    wgmma_rs_n128<TRANS_B>(d, a, b);
   else
-    wgmma_rs_n64(d, a, b);
+    wgmma_rs_n64<TRANS_B>(d, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The dense masks of the flash kernels (flash_fwd.cu, flash_bwd.cu), ku's
+// _fwd_kernel / _bwd_*_kernel clauses, for one batch row in 64 x 64 tiles.
+// ---------------------------------------------------------------------------
+
+struct DenseMask {
+  static constexpr int kT = 64;  // rows of a query or key tile
+  int n, kn;                     // queries and keys of the row
+  int qo, ko;                    // global positions of query 0 and key 0
+  int causal, window;            // window <= 0: none
+  const int* seg_q;              // the row's (N) and (KN) segment ids, or null
+  const int* seg_k;
+
+  static __device__ __forceinline__ int floor_div(int a, int b) {
+    return a >= 0 ? a / b : -((-a + b - 1) / b);
+  }
+
+  // Whether the pair (query qi, key ki) is live: inside N and KN, in one
+  // segment, not in the causal future, inside the window.
+  __device__ __forceinline__ bool pair(int qi, int ki) const {
+    if (qi >= n || ki >= kn) return false;
+    if (seg_q && __ldg(seg_q + qi) != __ldg(seg_k + ki)) return false;
+    if (causal && ko + ki > qo + qi) return false;
+    return window <= 0 || (qo + qi) - (ko + ki) < window;
+  }
+
+  // Whether every pair of the tile at queries q0.. x keys k0.. is live: no
+  // segments, and its corners pass every other clause.
+  __device__ __forceinline__ bool full(int q0, int k0) const {
+    return !seg_q && q0 + kT <= n && k0 + kT <= kn &&
+           (!causal || ko + k0 + kT - 1 <= qo + q0) &&
+           (window <= 0 || (qo + q0 + kT - 1) - (ko + k0) < window);
+  }
+
+  // The key tiles [lo, hi) that may hold a live pair for queries [q0, q1]:
+  // at or below the causal edge of q1, at or above the window's lower edge
+  // of q0 (ku's _live_fwd). Empty when lo >= hi.
+  __device__ __forceinline__ void key_tiles(int q0, int q1, int& lo, int& hi) const {
+    lo = 0;
+    hi = (kn + kT - 1) / kT;
+    if (causal) {
+      const int kmax = qo + q1 - ko;
+      hi = kmax < 0 ? 0 : min(hi, kmax / kT + 1);
+    }
+    if (window > 0) lo = max(0, floor_div(qo + q0 - (window - 1) - ko, kT));
+  }
+
+  // The query tiles [lo, hi) that may hold a live pair for keys [k0, k1]:
+  // the same rule read from the key side.
+  __device__ __forceinline__ void query_tiles(int k0, int k1, int& lo, int& hi) const {
+    lo = 0;
+    hi = (n + kT - 1) / kT;
+    if (causal) lo = max(0, floor_div(ko + k0 - qo, kT));
+    if (window > 0) {
+      const int qmax = window - 1 + ko + k1 - qo;
+      hi = qmax < 0 ? 0 : min(hi, qmax / kT + 1);
+    }
+  }
+};
+
+// The score x = (q . k) * scale capped as ku caps it, cap * tanh(x / cap)
+// when softcap > 0; dcap = 1 - (x / cap)^2 from the capped value (the
+// backward's factor; 1 without a cap).
+__device__ __forceinline__ float capped(float x, float softcap, float& dcap) {
+  dcap = 1.f;
+  if (softcap > 0.f) {
+    x = softcap * tanhf(x / softcap);
+    const float y = x / softcap;
+    dcap = 1.f - y * y;
+  }
+  return x;
 }
 
 }  // namespace attn_mma

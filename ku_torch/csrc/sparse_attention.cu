@@ -8,7 +8,7 @@
 // Contract (ku's layout):
 //   q (B, H, N, D), k (B, Hkv, KN, D), v (B, Hkv, KN, Dv), dout (B, H, N, Dv):
 //     f32 with any strides, or bf16 whose rows can be copied 16 bytes at a
-//     time (rows_aligned; the wrapper copies any other); D, Dv <= 128;
+//     time (runs_aligned; the wrapper copies any other); D, Dv <= 128;
 //     query head j reads KV head j / (H / Hkv).
 //   map (E, 5) int32, ku's flat map [q_block, k_block, flag, first, last]:
 //     fmap (grouped by query block) for the forward and dq, tmap (grouped by
@@ -557,12 +557,6 @@ __device__ __forceinline__ bool seek(const Args& a, bool by_key, int e0, int ne,
     }
   }
   return false;
-}
-
-// The dynamic shared memory's first 1024-byte boundary (the launch asks for
-// 1 KB more): swizzled tiles start on one.
-__device__ __forceinline__ bf16* swizzle_base(unsigned char* raw) {
-  return reinterpret_cast<bf16*>(raw + ((1024 - (attn_mma::smem_u32(raw) & 1023)) & 1023));
 }
 
 template <int DMAX>
@@ -1114,15 +1108,6 @@ cudaError_t wgmma_by_width(Which w, const Args& a, int b, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// The bf16 kernels copy rows 16 bytes at a time: a tensor needs unit
-// stride along its rows, every other stride (of an axis longer than 1) a
-// multiple of 8 elements, and a 16-byte-aligned start.
-bool rows_aligned(const void* p, const long long* s, int b, int heads, int n) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[3] == 1 &&
-         (b == 1 || s[0] % 8 == 0) && (heads == 1 || s[1] % 8 == 0) &&
-         (n == 1 || s[2] % 8 == 0);
-}
-
 int entry(Which w, const void* q, const void* k, const void* v, const void* dout,
           const void* lse, const void* delta, void* out0, void* out1,
           const void* map, const void* ptr, int b, int h, int hkv, int n, int kn,
@@ -1138,9 +1123,11 @@ int entry(Which w, const void* q, const void* k, const void* v, const void* dout
       (w == kDkv && (long long)kn / block_k * ((block_k + kT - 1) / kT) > 65535) ||
       (dtype == 0 && smem_bytes(w, d, dv) > 227 * 1024))
     return cudaErrorInvalidValue;
-  if (dtype == 1 && !(rows_aligned(q, st, b, h, n) && rows_aligned(k, st + 4, b, hkv, kn) &&
-                      rows_aligned(v, st + 8, b, hkv, kn) &&
-                      (w == kFwd || rows_aligned(dout, st + 12, b, h, n))))
+  using attn_mma::runs_aligned;  // the bf16 kernels copy rows 16 bytes at a time
+  if (dtype == 1 && !(runs_aligned(q, st, b, h, n, d, 3) &&
+                      runs_aligned(k, st + 4, b, hkv, kn, d, 3) &&
+                      runs_aligned(v, st + 8, b, hkv, kn, dv, 3) &&
+                      (w == kFwd || runs_aligned(dout, st + 12, b, h, n, dv, 3))))
     return cudaErrorMisalignedAddress;
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1170,7 +1157,7 @@ extern "C" {
 // grid past 65,535 on its slow axis: B * H for the forward and dq, the key
 // sub-tiles for dk / dv); cudaErrorMisalignedAddress for a bf16 tensor
 // whose rows the tensor-core kernels cannot copy 16 bytes at a time (see
-// rows_aligned).
+// attn_mma.cuh's runs_aligned).
 #define KU_SPARSE_ENTRY(NAME, WHICH)                                            \
   int NAME(const void* q, const void* k, const void* v, const void* dout,       \
            const void* lse, const void* delta, void* out0, void* out1,          \

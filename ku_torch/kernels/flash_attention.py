@@ -1,17 +1,22 @@
 """Flash attention, forward and backward, as CUDA kernels with their plain
 versions, and the autograd function that joins them.
 
-Port of ``ku/pallas/flash_attention.py``. Two sources:
+Port of ``ku/pallas/flash_attention.py``. Two sources, each with two
+routes that the C entry picks (``route`` on each wrapper names the last
+launch's, as the C entry reports it):
 
 - ``ku_torch/csrc/flash_fwd.cu`` replaces ``_fwd_kernel``: one block per
-  (batch·head, 64-query tile) streams the live 64-key tiles through shared
-  memory into an online softmax and writes the output and the f32
-  log-sum-exp.
+  (batch·head, 64-query tile) streams the live 64-key tiles into an online
+  softmax and writes the output and the f32 log-sum-exp.
 - ``ku_torch/csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``: dq from one block per (batch·head, 64-query tile),
   dk and dv from one block per (batch·KV head, 64-key tile) that sums every
   query head of its group, both recomputing the probabilities from the
-  saved log-sum-exp. Their source notes say what bounds them on an H100.
+  saved log-sum-exp.
+- Routes: bf16 with D and Dv up to 128 runs on the tensor cores (``"mma"``:
+  warpgroup ``wgmma`` over bf16 tiles, f32 sums); f32, and a bf16 forward
+  with D past 128, on the CUDA cores (``"f32"``). Nothing falls back from
+  one to the other. Their source notes say what bounds them on an H100.
 
 Functions:
 
@@ -35,6 +40,7 @@ Functions:
   whose forward is :func:`flash_fwd` and whose backward is :func:`flash_bwd`
   over the saved q, k, v, o and lse (``ku``'s ``jax.custom_vjp``); under
   ``torch.no_grad()`` it is :func:`flash_fwd`'s output alone.
+- :func:`flash_layout` says how a tensor-core launch reads its tensors.
 
 Contract, as ``ku.pallas.flash_attention._fwd_pallas``: q (B, H, N, D),
 k/v (B, Hkv, KN, D)/(B, Hkv, KN, Dv) with H a multiple of Hkv (query head j
@@ -77,6 +83,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = ([p] * 9 + [i] * 7 + [ll] * 12
                                      + [f, f, i, i, i, p])
     lib.flash_fwd_launch.restype = i
+    lib.flash_fwd_last_launch.argtypes = []
+    lib.flash_fwd_last_launch.restype = i
     lib.flash_fwd_error_string.argtypes = [i]
     lib.flash_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,9 +97,96 @@ def _bwd_library() -> ctypes.CDLL:
     for fn in (lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
         fn.argtypes = [p] * 12 + [i] * 7 + [p, f, f, i, i, i, p]
         fn.restype = i
+    lib.flash_bwd_last_launch.argtypes = []
+    lib.flash_bwd_last_launch.restype = i
     lib.flash_bwd_error_string.argtypes = [i]
     lib.flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _runs_ready(t, unit: int) -> bool:
+    """Whether the tensor-core kernels can copy ``t`` 16 bytes at a time
+    along axis ``unit``: unit stride there, every other stride of an axis
+    longer than 1 a multiple of 8 elements (16 bytes of bf16), and a
+    16-byte-aligned start (``runs_aligned`` in ``attn_mma.cuh``)."""
+    unit %= t.dim()
+    return (t.stride(unit) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for i, (st, n) in enumerate(zip(t.stride(), t.shape))
+                    if i != unit and n > 1))
+
+
+def _mma_ready(t) -> bool:
+    """Whether the tensor-core kernels can read ``t`` in rows along its last
+    axis (:func:`_runs_ready`). Autograd's dO, a transposed view with rows
+    H·Dv apart, can."""
+    return _runs_ready(t, -1)
+
+
+def _keys_ready(t) -> bool:
+    """Whether the tensor-core forward can read a (B, Hkv, KN, D) ``t`` in
+    place along its keys (:func:`_runs_ready` along axis 2). The serving
+    prefill's transposed view of the slot-minor (B, Hkv, D, S) cache can,
+    for S a multiple of 8."""
+    return t.dim() == 4 and _runs_ready(t, 2)
+
+
+def _mma_rows(t):
+    """``t`` itself when :func:`_mma_ready`, else a copy whose rows are padded
+    to a multiple of 8 elements (contiguous when the width is one), viewed
+    at ``t``'s width."""
+    if _mma_ready(t):
+        return t
+    width = t.shape[-1]
+    out = torch.empty(*t.shape[:-1], -(-width // 8) * 8, dtype=t.dtype, device=t.device)
+    out = out[..., :width]
+    out.copy_(t)
+    return out
+
+
+def flash_route(dtype, d: int) -> str:
+    """The kernels a launch of head width ``d`` takes, as the flash and the
+    block-sparse C entries dispatch: bf16 up to 128 wide on the tensor cores
+    (``"mma"``), f32 and a wider bf16 forward on the CUDA cores
+    (``"f32"``). The wrappers copy for the tensor cores by it
+    (:func:`_for_mma`); their ``route`` is what the C entry reports."""
+    return "mma" if dtype == torch.bfloat16 and d <= 128 else "f32"
+
+
+def flash_layout(q, k, v, do=None) -> str:
+    """How a tensor-core launch reads q, k, v (and the backward's dO), from
+    their shapes, strides and start addresses alone, as the C entries
+    decide it:
+
+    - ``"a"``: every tensor is :func:`_mma_ready`, rows unit-stride along
+      the head (the training path: ``split_heads``' views, autograd's dO);
+    - ``"b"``: the forward only (``do`` None), q is :func:`_mma_ready` and k
+      and v are both :func:`_keys_ready`: the slot-minor cache, read in
+      place by the tensor cores with no copy;
+    - ``"c"``: anything else. The wrapper first copies each tensor that is
+      not :func:`_mma_ready` into one that is (:func:`_mma_rows`), which the
+      kernels then read as in ``"a"``: a copy on the card, not the plain
+      version."""
+    ready = [_mma_ready(t) for t in (q, k, v) + (() if do is None else (do,))]
+    if all(ready):
+        return "a"
+    if do is None and ready[0] and _keys_ready(k) and _keys_ready(v):
+        return "b"
+    return "c"
+
+
+# flash_fwd_last_launch's codes: (route, layout).
+_FWD_LAUNCHED = {0: ("f32", None), 1: ("mma", "a"), 2: ("mma", "b")}
+
+
+def _for_mma(entry, *tensors):
+    """The tensors as a tensor-core launch reads them (:func:`flash_layout`):
+    unchanged in layouts "a" and "b"; in "c" each one that is not
+    :func:`_mma_ready` copied, and counted in ``entry.copies``."""
+    layout = flash_layout(*tensors)
+    if layout == "c":
+        entry.copies += sum(not _mma_ready(t) for t in tensors)
+        tensors = tuple(_mma_rows(t) for t in tensors)
+    return layout, tensors
 
 
 def _norm_segments(segment_ids, b, n, kn, device):
@@ -180,8 +275,15 @@ def flash_fwd_cuda(q, k, v, *, softmax_scale: float = 1.0, causal: bool = False,
     """The forward as one launch of the kernel: (o, lse).
 
     Takes CUDA tensors on one device, q/k/v all f32 or all bf16 with any
-    strides. Launches on the current stream and does not synchronise.
-    Raises on anything else and if the launch is refused."""
+    strides. bf16 with D and Dv up to 128 runs on the tensor cores, f32 and
+    a wider bf16 head on the CUDA cores (``launches`` counts both;
+    ``route`` names the last one's and ``layout`` its layout on the tensor
+    cores, as the C entry reports them, "c" where the wrapper copied). The tensor-core kernel reads rows unit-stride along
+    the head, or k and v in place along the keys (the slot-minor cache);
+    any other bf16 tensor is first copied into rows it can read
+    (:func:`_mma_rows`, counted in ``copies``). That is a copy on the card,
+    not the plain version. Launches on the current stream and does not
+    synchronise. Raises on anything else and if the launch is refused."""
     _check(q, k, v, causal, window)
     _check_cuda("flash_fwd_cuda", q, k, v)
     device = q.device
@@ -189,6 +291,9 @@ def flash_fwd_cuda(q, k, v, *, softmax_scale: float = 1.0, causal: bool = False,
     hkv, kn, dv = k.shape[1], k.shape[2], v.shape[3]
     if dv > 128:
         raise ValueError(f"flash_fwd_cuda takes value heads up to 128 wide, got {dv}")
+    planned = None
+    if flash_route(q.dtype, d) == "mma":
+        planned, (q, k, v) = _for_mma(flash_fwd_cuda, q, k, v)
     segs = _norm_segments(segment_ids, b, n, kn, device)
     q_off, k_off = _offsets(q_offset, b, device), _offsets(k_offset, b, device)
     o = torch.empty(b, h, n, dv, dtype=q.dtype, device=device)
@@ -207,10 +312,15 @@ def flash_fwd_cuda(q, k, v, *, softmax_scale: float = 1.0, causal: bool = False,
         raise RuntimeError("flash_fwd launch failed: "
                            f"{lib.flash_fwd_error_string(err).decode()} ({err})")
     flash_fwd_cuda.launches += 1
+    route, layout = _FWD_LAUNCHED[lib.flash_fwd_last_launch()]
+    if planned == "c" and layout == "a":  # the wrapper's copies, read as rows
+        layout = "c"
+    flash_fwd_cuda.route, flash_fwd_cuda.layout = route, layout
     return o, lse
 
 
-flash_fwd_cuda.launches = 0
+flash_fwd_cuda.launches = flash_fwd_cuda.copies = 0
+flash_fwd_cuda.route = flash_fwd_cuda.layout = None
 
 
 def flash_fwd_torch(q, k, v, *, softmax_scale: float = 1.0,
@@ -280,6 +390,8 @@ def _bwd_launch(entry, outs, q, k, v, do, lse, delta, *, softmax_scale=1.0,
             raise ValueError(f"{what} must be ({b}, {h}, {n}) float32 on {device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     lse, delta = lse.contiguous(), delta.contiguous()
+    if flash_route(q.dtype, d) == "mma":
+        _, (q, k, v, do) = _for_mma(entry, q, k, v, do)
     segs = _norm_segments(segment_ids, b, n, kn, device)
     q_off, k_off = _offsets(q_offset, b, device), _offsets(k_offset, b, device)
     strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(),
@@ -299,6 +411,7 @@ def _bwd_launch(entry, outs, q, k, v, do, lse, delta, *, softmax_scale=1.0,
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.flash_bwd_error_string(err).decode()} ({err})")
     entry.launches += 1
+    entry.route = ("f32", "mma")[lib.flash_bwd_last_launch()]
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
@@ -306,9 +419,13 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
     forward's lse and ``delta`` = rowsum(dO·O) (both (B, H, N) f32).
 
     Takes CUDA tensors on one device, q/k/v/dO all f32 or all bf16 with any
-    strides, the forward's keyword arguments. Launches on the current stream
-    and does not synchronise. Raises on anything else and if the launch is
-    refused."""
+    strides, the forward's keyword arguments. bf16 runs on the tensor cores,
+    f32 on the CUDA cores (``route`` names the last launch's, as the C entry
+    reports it); a bf16 tensor
+    that is not :func:`_mma_ready` is first copied into rows that are
+    (counted in ``copies``), a copy on the card and not the plain version.
+    Launches on the current stream and does not synchronise. Raises on
+    anything else and if the launch is refused."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch(flash_bwd_dq_cuda, (dq,), q, k, v, do, lse, delta, **kw)
     return dq
@@ -324,8 +441,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw):
     return dk, dv
 
 
-flash_bwd_dq_cuda.launches = 0
-flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dq_cuda.launches = flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dq_cuda.copies = flash_bwd_dkv_cuda.copies = 0
+flash_bwd_dq_cuda.route = flash_bwd_dkv_cuda.route = None
 
 
 def _bwd_slabs(q, k, v, do, lse, delta, *, softmax_scale=1.0, causal=False,

@@ -72,7 +72,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ku_torch.kernels import _build
-from ku_torch.kernels.flash_attention import _DTYPE_CODES, _check_cuda, _delta, _wide
+from ku_torch.kernels.flash_attention import (_DTYPE_CODES, _check_cuda, _delta, _mma_ready,
+                                              _mma_rows, _wide, flash_route)
 
 NAME = "sparse_attention"
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sparse_attention.cu"
@@ -283,35 +284,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _mma_ready(t) -> bool:
-    """Whether the tensor-core kernels can copy ``t``'s rows 16 bytes at a
-    time: unit stride along the last axis, every other stride of an axis
-    longer than 1 a multiple of 8 elements (16 bytes of bf16), and a
-    16-byte-aligned start. Autograd's dO, a transposed view with rows H·Dv
-    apart, is."""
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
-
-
-def _mma_rows(t):
-    """``t`` itself when :func:`_mma_ready`, else a copy whose rows are padded
-    to a multiple of 8 elements (contiguous when the width is one), viewed
-    at ``t``'s width."""
-    if _mma_ready(t):
-        return t
-    width = t.shape[-1]
-    out = torch.empty(*t.shape[:-1], -(-width // 8) * 8, dtype=t.dtype, device=t.device)
-    out = out[..., :width]
-    out.copy_(t)
-    return out
-
-
-def _route(dtype) -> str:
-    """The kernels a launch takes, as the C entry dispatches: bf16 on the
-    tensor cores (``mma``), f32 on the CUDA cores (``f32``)."""
-    return "mma" if dtype == torch.bfloat16 else "f32"
-
-
 def _launch(entry, outs, q, k, v, do, lse, delta, mask, softmax_scale):
     """One launch of ``entry``'s kernel: the forward (``do``, ``lse`` and
     ``delta`` None; outs (o, lse)), dq (outs (dq,)) or dk/dv (outs (dk,
@@ -333,7 +305,7 @@ def _launch(entry, outs, q, k, v, do, lse, delta, mask, softmax_scale):
     _check_cuda(name, q, k, v, *(() if do is None else (do,)))
     if do is not None:
         lse, delta = lse.contiguous(), delta.contiguous()
-    route = _route(q.dtype)
+    route = flash_route(q.dtype, d)
     if route == "mma":
         q, k, v = _mma_rows(q), _mma_rows(k), _mma_rows(v)
         do = None if do is None else _mma_rows(do)

@@ -119,7 +119,10 @@ def test_rbm_fit_on_the_card_launches_the_kernel(device):
 # versions. f32 rtol/atol 1e-4 (sums in another order); bf16 rtol 1e-2, just
 # above one bf16 ulp (2^-7 of the value: the output's own rounding can fall
 # either way), atol 2e-3 (the probabilities round to bf16 against another
-# running max, 2^-9 of each term); the f32 LSE 1e-4 in both.
+# running max, 2^-9 of each term); the f32 LSE 1e-4 in both. The flash
+# kernels run bf16 up to 128 wide on the tensor cores and the rest on the
+# CUDA cores: each case checks its launch's route and layout, as the C
+# entry reports them, against the wrapper's plan, and its copies.
 # ---------------------------------------------------------------------------
 
 from ku_torch.kernels import decode_attention as da  # noqa: E402
@@ -136,7 +139,40 @@ FLASH_CASES = {
     "noncausal_long_keys": dict(b=1, h=3, hkv=3, n=5, kn=130, d=128, causal=False),
     "cache_view_rows": dict(b=3, h=8, hkv=2, n=65, kn=200, d=128, cache_view=True,
                             q_offset=[0, 64, 100]),
+    # Widths the tensor-core tiles zero-fill; layouts the wrapper copies for
+    # the tensor cores (a cache 203 slots wide, q strided or 2 bytes off
+    # 16); a bf16 head wider than 128 (the CUDA-core kernel, by shape).
+    "d40_dv24": dict(b=2, h=4, hkv=2, n=70, kn=90, d=40, dv=24, window=30),
+    "d36_dv12": dict(b=1, h=2, hkv=2, n=64, kn=128, d=36, dv=12),
+    "cache_view_width_203": dict(b=2, h=4, hkv=2, n=33, kn=203, d=128, cache_view=True,
+                                 q_offset=[0, 150]),
+    "q_strided": dict(b=1, h=4, hkv=2, n=65, kn=65, d=64, q_layout="strided"),
+    "q_offset_2_bytes": dict(b=1, h=2, hkv=1, n=40, kn=70, d=64, q_layout="offset",
+                             softcap=5.0),
+    "d160": dict(b=1, h=2, hkv=1, n=50, kn=70, d=160, dv=128),
+    # Odd widths and an odd count of keys read in place from a wider cache:
+    # the 16-byte copies' last chunk of a row or key run is partial.
+    "d37_dv21": dict(b=2, h=4, hkv=2, n=45, kn=77, d=37, dv=21, window=40),
+    "cache_view_203_of_208": dict(b=2, h=4, hkv=2, n=33, kn=203, d=64, cache_view=True,
+                                  cache_slots=208, q_offset=[0, 150]),
+    # Causal with no segments, window or ragged edge, rows along D: the key
+    # tiles below the diagonal are full and test no pair.
+    "causal_full_tiles": dict(b=2, h=4, hkv=2, n=256, kn=256, d=128),
 }
+
+
+def _q_in_layout(q, layout):
+    """q's values in a layout the tensor-core kernels cannot read as it is:
+    "strided", every other element of rows twice as wide; "offset", one
+    element into a flat buffer (2 bytes off 16 in bf16)."""
+    if layout == "strided":
+        wide = torch.zeros(*q.shape[:-1], 2 * q.shape[-1], dtype=q.dtype, device=q.device)
+        wide[..., ::2] = q
+        return wide[..., ::2]
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=q.device)
+    out = flat[1:].view(q.shape)
+    out.copy_(q)
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -144,14 +180,18 @@ FLASH_CASES = {
 def test_flash_fwd_matches_plain(device, case, dtype):
     c = dict(FLASH_CASES[case])
     b, h, hkv, n, kn, d = (c.pop(k) for k in ("b", "h", "hkv", "n", "kn", "d"))
+    dv = c.pop("dv", d)
     g = torch.Generator(device=device).manual_seed(0)
     q = torch.randn(b, h, n, d, generator=g, device=device).to(dtype)
+    if "q_layout" in c:
+        q = _q_in_layout(q, c.pop("q_layout"))
     if c.pop("cache_view", False):
-        k, v = (torch.randn(b, hkv, d, kn, generator=g, device=device).to(dtype)
-                .transpose(2, 3) for _ in range(2))
+        slots = c.pop("cache_slots", kn)
+        k, v = (torch.randn(b, hkv, w, slots, generator=g, device=device).to(dtype)
+                [..., :kn].transpose(2, 3) for w in (d, dv))
     else:
-        k, v = (torch.randn(b, hkv, kn, d, generator=g, device=device).to(dtype)
-                for _ in range(2))
+        k, v = (torch.randn(b, hkv, kn, w, generator=g, device=device).to(dtype)
+                for w in (d, dv))
     seg = None
     if c.pop("segments", False):
         seg = torch.sort(torch.randint(0, 4, (b, n), generator=g, device=device),
@@ -162,10 +202,23 @@ def test_flash_fwd_matches_plain(device, case, dtype):
     kw = dict(softmax_scale=0.1, causal=c.pop("causal", True),
               window=c.pop("window", None), logit_softcap=c.pop("softcap", None),
               segment_ids=seg, **offsets)
-    before = fa.flash_fwd_cuda.launches
+    route = fa.flash_route(dtype, d)
+    layout = fa.flash_layout(q, k, v) if route == "mma" else None
+    before, copies = fa.flash_fwd_cuda.launches, fa.flash_fwd_cuda.copies
     o_k, lse_k = fa.flash_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_fwd_cuda.launches == before + 1
+    assert (fa.flash_fwd_cuda.route, fa.flash_fwd_cuda.layout) == (route, layout)
+    assert route == ("f32" if dtype == torch.float32 or d > 128 else "mma")
+    assert (fa.flash_fwd_cuda.copies > copies) == (layout == "c")
+    if case == "cache_view_rows" and dtype == torch.bfloat16:
+        assert layout == "b" and fa.flash_fwd_cuda.copies == copies  # read in place
+    if case == "cache_view_width_203" and dtype == torch.bfloat16:
+        assert layout == "c" and fa.flash_fwd_cuda.copies == copies + 2
+    if case == "cache_view_203_of_208" and dtype == torch.bfloat16:
+        assert layout == "b" and fa.flash_fwd_cuda.copies == copies
+    if case == "causal_full_tiles" and dtype == torch.bfloat16:
+        assert layout == "a" and fa.flash_fwd_cuda.copies == copies
     o_p, lse_p = fa.flash_fwd_torch(q, k, v, **kw)
     torch.testing.assert_close(o_k, o_p, **SERVE_TOL[dtype])
     torch.testing.assert_close(lse_k, lse_p, rtol=1e-4, atol=1e-4)
@@ -462,6 +515,16 @@ BWD_CASES = {
                       q_offset=[0, -80]),
     "value_heads_narrower": dict(b=2, h=4, hkv=2, n=50, kn=61, d=128, dv=64),
     "value_heads_wider": dict(b=1, h=2, hkv=1, n=65, kn=65, d=32, dv=96, window=20),
+    # Widths the tensor-core tiles zero-fill; q in layouts the wrapper
+    # copies for the tensor cores.
+    "d40_dv24": dict(b=2, h=4, hkv=2, n=70, kn=90, d=40, dv=24, window=30),
+    "d36_dv12": dict(b=1, h=2, hkv=2, n=64, kn=128, d=36, dv=12, strided_do=True),
+    "q_strided": dict(b=1, h=4, hkv=2, n=65, kn=65, d=64, q_layout="strided"),
+    "q_offset_2_bytes": dict(b=1, h=2, hkv=1, n=40, kn=70, d=64, q_layout="offset",
+                             softcap=5.0),
+    "d37_dv21": dict(b=2, h=4, hkv=2, n=45, kn=77, d=37, dv=21, window=40, softcap=3.0),
+    # Causal with no segments, window or ragged edge: full tiles, no pair tested.
+    "causal_full_tiles": dict(b=2, h=4, hkv=2, n=256, kn=256, d=128, strided_do=True),
 }
 
 
@@ -481,6 +544,8 @@ def test_flash_bwd_kernels_match_plain(device, case, dtype):
     dv = c.pop("dv", d)
     g = torch.Generator(device=device).manual_seed(3)
     q = torch.randn(b, h, n, d, generator=g, device=device).to(dtype)
+    if "q_layout" in c:
+        q = _q_in_layout(q, c.pop("q_layout"))
     k = torch.randn(b, hkv, kn, d, generator=g, device=device).to(dtype)
     v = torch.randn(b, hkv, kn, dv, generator=g, device=device).to(dtype)
     if c.pop("strided_do", False):
@@ -500,10 +565,16 @@ def test_flash_bwd_kernels_match_plain(device, case, dtype):
     o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     before = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    copies = (fa.flash_bwd_dq_cuda.copies, fa.flash_bwd_dkv_cuda.copies)
     dq, dk, dv_ = fa.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+    route = "mma" if dtype == torch.bfloat16 else "f32"
+    assert (fa.flash_bwd_dq_cuda.route, fa.flash_bwd_dkv_cuda.route) == (route, route)
+    copied = sum(not fa._mma_ready(t) for t in (q, k, v, do)) if route == "mma" else 0
+    assert (fa.flash_bwd_dq_cuda.copies, fa.flash_bwd_dkv_cuda.copies) == (
+        copies[0] + copied, copies[1] + copied)
     assert dq.shape == q.shape and dk.shape == k.shape and dv_.shape == v.shape
     _bwd_close(dq, fa.flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw), dtype)
     dk_p, dv_p = fa.flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
@@ -529,6 +600,22 @@ def test_flash_bwd_wrappers_reject_what_the_kernels_do_not_take(device):
     wide = torch.zeros(1, 2, 4, 160, device=device)
     with pytest.raises(ValueError, match="up to 128"):
         fa.flash_bwd_dkv_cuda(wide, wide, wide, wide, lse, lse)
+
+
+def test_flash_mma_launch_refuses_rows_it_cannot_read(device, monkeypatch):
+    """The wrapper copies a bf16 tensor that the tensor-core kernels cannot
+    read (layout "c"); without that copy the C entries refuse the launch,
+    and the wrappers raise: nothing falls back to the CUDA-core kernels."""
+    q = _q_in_layout(torch.randn(1, 2, 64, 16, device=device).bfloat16(), "offset")
+    k = torch.randn(1, 2, 64, 16, device=device).bfloat16()
+    monkeypatch.setattr(fa, "_for_mma", lambda entry, *ts: ("c", ts))
+    before = (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd_cuda(q, k, k)
+    lse = torch.zeros(1, 2, 64, device=device)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_bwd_dq_cuda(q, k, k, k, lse, lse)
+    assert (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches) == before
 
 
 class _TiedLM(torch.nn.Module):
@@ -642,19 +729,6 @@ SPARSE_CASES = {
     "odd_widths_d36_dv12": (((128,), dict(block_q=64, block_k=64, causal=True)),
                             1, 2, 2, 36, 12, {}),
 }
-
-
-def _q_in_layout(q, layout):
-    """q's values in another layout: "strided", every other element of a
-    row twice as wide; "offset", one element into a flat buffer."""
-    if layout == "strided":
-        wide = torch.zeros(*q.shape[:-1], 2 * q.shape[-1], dtype=q.dtype, device=q.device)
-        wide[..., ::2] = q
-        return wide[..., ::2]
-    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=q.device)
-    out = flat[1:].view(q.shape)
-    out.copy_(q)
-    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

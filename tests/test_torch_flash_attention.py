@@ -32,6 +32,10 @@ CASES = {
     "mqa_noncausal": dict(
         b=1, h=3, hkv=1, n=5, kn=70, d=8, causal=False, window=None,
         softcap=None, q_offset=None, k_offset=None, segments=False),
+    # Key and value heads of widths the tensor-core tiles zero-fill.
+    "d40_dv24": dict(
+        b=1, h=2, hkv=1, n=33, kn=45, d=40, dv=24, causal=True, window=None,
+        softcap=None, q_offset=None, k_offset=None, segments=False),
 }
 
 
@@ -40,7 +44,7 @@ def test_plain_forward_matches_ku_interpret(rng, name):
     c = CASES[name]
     q = rng.normal(size=(c["b"], c["h"], c["n"], c["d"])).astype(np.float32)
     k = rng.normal(size=(c["b"], c["hkv"], c["kn"], c["d"])).astype(np.float32)
-    v = rng.normal(size=(c["b"], c["hkv"], c["kn"], c["d"])).astype(np.float32)
+    v = rng.normal(size=(c["b"], c["hkv"], c["kn"], c.get("dv", c["d"]))).astype(np.float32)
     seg = None
     if c["segments"]:
         seg = np.sort(rng.integers(0, 4, size=(c["b"], c["n"])), axis=1

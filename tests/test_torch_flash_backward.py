@@ -53,6 +53,8 @@ CASES = {
                              bf16=True),
     "bf16_window_segments": dict(b=2, h=4, hkv=1, n=45, kn=45, d=16, window=9,
                                  segments=True, bf16=True),
+    # Key and value heads of widths the tensor-core tiles zero-fill.
+    "d40_dv24": dict(b=1, h=2, hkv=1, n=33, kn=45, d=40, dv=24),
 }
 
 
@@ -67,9 +69,9 @@ def _torch(a):
 def _inputs(rng, c):
     dt = ml_dtypes.bfloat16 if c.get("bf16") else np.float32
     q = rng.normal(size=(c["b"], c["h"], c["n"], c["d"])).astype(dt)
-    k, v = (rng.normal(size=(c["b"], c["hkv"], c["kn"], c["d"])).astype(dt)
-            for _ in range(2))
-    do = rng.normal(size=(c["b"], c["h"], c["n"], c["d"])).astype(dt)
+    dv = c.get("dv", c["d"])
+    k, v = (rng.normal(size=(c["b"], c["hkv"], c["kn"], w)).astype(dt) for w in (c["d"], dv))
+    do = rng.normal(size=(c["b"], c["h"], c["n"], dv)).astype(dt)
     seg = None
     if c.get("segments"):
         seg = np.sort(rng.integers(0, 4, size=(c["b"], c["n"])), axis=1

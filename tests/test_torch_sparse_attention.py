@@ -395,4 +395,5 @@ def test_tensor_core_kernels_copy_rows_they_cannot_take(name, ready):
     assert (got is t) == ready
     assert sa._mma_ready(got) and got.shape == t.shape and torch.equal(got, t)
     assert got.stride(-2) % 8 == 0 and got.stride(-2) >= t.shape[-1]
-    assert sa._route(torch.bfloat16) == "mma" and sa._route(torch.float32) == "f32"
+    assert sa.flash_route(torch.bfloat16, 32) == "mma"
+    assert sa.flash_route(torch.float32, 32) == "f32"
