@@ -64,7 +64,13 @@ Phases (any failure raises and the script exits non-zero):
    head 160 wide (the CUDA-core kernel, by shape); causal at N = KN = 256
    in rows (full key tiles that test no pair); flash decoding at the
    decode step's shape and at ragged ones (lengths 0, 1 and S, G 1 and 4,
-   softcap), and its int8 variant.
+   softcap), and its int8 variant; then at every edge of its chunk plan
+   (lengths 0, -1, 1, 63, 64, 65, 511, 512, 513, S and S + 100) with G 4,
+   1 and 16, Dv < D and int8 with softcap, on the 16-byte copies (S 1,024)
+   and the element loads (S 77, 130), each launch's route and 8 blocks a
+   cluster as the C entry reports them, rows of length <= 0 exactly 0; and
+   a row of the decode step's shape read alone equals the same row read in
+   its batch of 8, bit for bit.
 7. The serving LM at full width: 16 Transformer blocks, d_model 2048, 16
    query heads over 4 KV heads (head dim 128), RoPE, use_flash, a
    1,024-slot dense cache, weights from a seed (flax's initialisers), a
@@ -86,14 +92,19 @@ Phases (any failure raises and the script exits non-zero):
    flash launches on the tensor cores, none on the CUDA cores); each
    kernel at its path's shape, each call timed alone by CUDA events after
    a 256 MB write has evicted L2 (on the path a layer's weights stream
-   through L2 between two attention calls), against its plain version, its
+   through L2 between two attention calls) and the card has spun for
+   about 0.1 ms, so that the host's work before the launch is not timed,
+   against its plain version, its
    bound and one PyTorch call computing the same function (`ms`;
    scaled_dot_product_attention with a boolean mask, and for flash also
    with is_causal=True under each fused backend whose output agrees with
    the masked call's, all timed in turns, the fastest as `library_ms`);
    and the
    decode kernel alone under the profiler too, warm and cold, so that
-   `ms` and `path_ms` are also compared by one clock.
+   `ms` and `path_ms` are also compared by one clock; its route, stages
+   and blocks a cluster (the 16-byte route, checked), its achieved GB/s,
+   the host µs a launch of its wrapper and of each part of it, and every
+   decode instantiation's registers and spills (none may spill).
 
 9. (Run beside phase 6.) Paged flash decoding (kernel #7) against its
    plain version on the card:
@@ -101,8 +112,12 @@ Phases (any failure raises and the script exits non-zero):
    above for bf16 queries); pages of 16 and 256 slots over tables in
    permuted order whose dead tails point at one pool page poisoned with
    NaN (NaN scales for int8 pools); ragged lengths including 1 and one past
-   the table's end; G 4, D 128. Outputs finite. With an identity table and
-   one page as wide as the cache, it agrees with the dense kernel (1e-4).
+   the table's end; every edge of the chunk plan over pages of 16, 20 (the
+   element loads in bf16 and int8), 64 and 256 slots; G 4, D 128. Outputs
+   finite, each launch's route checked. With an identity table and one
+   page as wide as the cache (S 300 and 1,024, f32 and bf16), it equals
+   the dense kernel bit for bit; a row read alone equals the same row in
+   its batch of 8, bit for bit.
 10. (Run after phase 7's f32 part.) The same f32 LM with a paged cache
    (256-slot pages, max_decode_len
    2,048, so 8 pages a row): 8 prompts of 640..1,024 tokens, right-padded
@@ -130,8 +145,11 @@ Phases (any failure raises and the script exits non-zero):
    warm, against its bound (the live K/V bytes at the card's memory rate),
    its plain version and the dense kernel at the same lengths; and its
    device time a launch on the path from a profiler window over 8 paged
-   decode steps. No single PyTorch call reads through a page table, so its
-   `library_ms` is null.
+   decode steps; its route (16-byte, checked), stages and blocks a
+   cluster, achieved GB/s and the host µs a launch of its wrapper and its
+   parts. No single PyTorch call reads through a page table, so its
+   `library_ms` is null. Then the dense kernel at every row's length 64 to
+   16,384 slots, cold: its fixed cost and streaming rate by a line fit.
 14. (After the serving models are freed.) The flash backward kernels (dq,
    and dk/dv) against their plain versions on the card, on the same o, lse
    and delta, f32 through the CUDA-core kernels and bf16 through the
@@ -280,6 +298,9 @@ CBP_PAGES, CBP_PROMPT_LEN, CBP_PREFIX, CBP_MIN, CBP_MAX = 24, 256, 300, 64, 704
 TRAIN_N, TRAIN_PERIOD, TRAIN_SEQS, TRAIN_B, TRAIN_TIMED = 1024, 64, 32, 8, 8
 F32_GRAD_B, F32_FIT_B, TRAIN_LR = 2, 4, 3e-5
 FLUSH_BYTES = 256 << 20  # written before each cold call: past the 50 MB L2
+# Cycles the card spins after the flush (about 0.1 ms at 2 GHz): longer than
+# any wrapper's host work before its launch.
+HOLD_CYCLES = 200_000
 # The block-sparse phases: the same LM trained at SP_N tokens a sequence
 # (B 1) under StreamingLLM's pattern, a window of SP_WINDOW keys plus
 # SP_SINKS sinks, in ku's default 512 x 512 blocks; SP_TIMED timed bf16
@@ -343,12 +364,16 @@ def timed_cold_ms(fn, reps: int) -> float:
     """Mean ms per call of fn(), each call timed alone by CUDA events after
     a FLUSH_BYTES write has evicted L2, so that it reads its inputs from
     device memory as a layer of the model does (between two layers' calls
-    the weights of a layer stream through L2)."""
+    the weights of a layer stream through L2). The card then spins for
+    HOLD_CYCLES before the start event, so that the host has enqueued the
+    timed launches by the time the card reaches it: the time is the card's,
+    not the host's work in fn before its first launch."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
     for start, end in events:
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -942,29 +967,67 @@ def flash_case(dev, dtype, b, h, hkv, n, kn, d, *, dv=None, causal=True, window=
     return diff
 
 
-def decode_case(dev, dtype, b, hkv, g_, d, s, lengths, *, softcap=None,
+# Lengths at every edge of the decode kernels' chunk plan (da.split_plan:
+# chunks of 64 slots from 1 to 512 live slots, of 128 above), before the
+# window and the window + 100 that each case adds.
+SPLIT_EDGES = [0, -1, 1, 63, 64, 65, 511, 512, 513]
+
+
+def check_decode_launch(q, k, v, kw, what):
+    """The C entry's report of the launch just made: the copy route and the
+    fold that the wrapper's plan (da.copy_route, da.fold_route) names, 8
+    blocks a cluster."""
+    launched = da.last_launch()
+    route = da.copy_route(k, v, kw.get("k_scale"), kw.get("v_scale"))
+    fold = da.fold_route(q, k, v)
+    check(launched is not None and launched["route"] == route
+          and launched["fold"] == fold and launched["s_split"] == da.S_SPLIT,
+          f"{what} launched {launched}, not the {route} route and the {fold} fold over "
+          f"{da.S_SPLIT} blocks")
+    return launched
+
+
+def decode_case(dev, dtype, b, hkv, g_, d, s, lengths, *, dv=None, softcap=None,
                 int8=False, seed=0) -> float:
-    """One flash-decoding read, kernel against plain on the same inputs."""
+    """One flash-decoding read, kernel against plain on the same inputs; the
+    launch's copy route (16-byte copies where S is a multiple of a 16-byte
+    segment's slots, else element loads) as the C entry reports it."""
+    dv = dv or d
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, hkv, g_, d, generator=g, device=dev).to(dtype)
     kw = dict(softmax_scale=1.0 / math.sqrt(hkv * g_ * d), logit_softcap=softcap)
     if int8:
         k = torch.randint(-127, 128, (b, hkv, d, s), generator=g, device=dev).to(torch.int8)
-        v = torch.randint(-127, 128, (b, hkv, d, s), generator=g, device=dev).to(torch.int8)
+        v = torch.randint(-127, 128, (b, hkv, dv, s), generator=g, device=dev).to(torch.int8)
         kw["k_scale"] = torch.rand(b, hkv, s, generator=g, device=dev) * 0.02
         kw["v_scale"] = torch.rand(b, hkv, s, generator=g, device=dev) * 0.02
     else:
         k = torch.randn(b, hkv, d, s, generator=g, device=dev).to(dtype)
-        v = torch.randn(b, hkv, d, s, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, hkv, dv, s, generator=g, device=dev).to(dtype)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     o_k = da.decode_attention_cuda(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
+    launched = check_decode_launch(q, k, v, kw, "decode")
+    check(bool(torch.isfinite(o_k).all()), "decode kernel output is not finite")
+    check(bool((o_k[lengths <= 0] == 0).all()), "a decode row of length <= 0 is not 0")
     o_p = da.decode_attention_torch(q, k, v, lengths, **kw)
     torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
     diff = _max_diff(o_k, o_p)
-    log(f"  decode {str(dtype)[6:]} B{b} Hkv{hkv} G{g_} D{d} S{s} int8 {int8} "
-        f"softcap {softcap} lengths {lengths.tolist()}: max abs diff {diff:.3e}")
+    log(f"  decode {str(dtype)[6:]} ({launched['route']}, {launched['fold']}, "
+        f"{launched['stages']} stages) "
+        f"B{b} Hkv{hkv} G{g_} D{d} Dv{dv} S{s} int8 {int8} softcap {softcap} lengths "
+        f"{lengths.tolist()}: max abs diff {diff:.3e}")
     return diff
+
+
+def alone_and_in_a_batch(read, b, what):
+    """Row i of read(slice(None)) equals read(slice(i, i + 1)), bit for bit:
+    a row's output depends on its own length and slots alone."""
+    batch = read(slice(None))
+    for i in range(b):
+        check(torch.equal(read(slice(i, i + 1)), batch[i:i + 1]),
+              f"{what}: row {i} read alone differs from the same row in the batch")
+    log(f"  {what}: each of {b} rows read alone equals the batch's row, bit for bit")
 
 
 def serving_kernels_vs_plain(dev):
@@ -1023,6 +1086,26 @@ def serving_kernels_vs_plain(dev):
                                          seed=3))
         decode = max(decode, decode_case(dev, dtype, 2, 2, 4, 80, 77, [77, 5],
                                          int8=True, seed=2))
+        # Every edge of the chunk plan, both copy routes: G 4, 1 and 16, Dv
+        # < D, int8 with softcap; S 77 and 130 take the element loads.
+        for s, g_, d, dv, int8, seed in ((LM_MAX_LEN, 4, 128, 128, False, 20),
+                                         (LM_MAX_LEN, 1, 64, 64, False, 21),
+                                         (LM_MAX_LEN, 16, 64, 32, False, 22),
+                                         (LM_MAX_LEN, 4, 128, 96, True, 23),
+                                         (77, 4, 64, 48, False, 24),
+                                         (130, 16, 32, 32, True, 25)):
+            decode = max(decode, decode_case(
+                dev, dtype, len(SPLIT_EDGES) + 2, 2, g_, d, s, SPLIT_EDGES + [s, s + 100],
+                dv=dv, softcap=2.0 if int8 else None, int8=int8, seed=seed))
+    # A row of the decode step's shape reads alike alone and in the batch.
+    g = torch.Generator(device=dev).manual_seed(26)
+    q = torch.randn(GEN_B, LM_KV_HEADS, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(GEN_B, LM_KV_HEADS, 128, LM_MAX_LEN, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([1, 64, 200, 511, 513, 700, 1000, 1024], dtype=torch.int32,
+                           device=dev)
+    alone_and_in_a_batch(lambda i: da.decode_attention_cuda(q[i], k[i], v[i], lengths[i]),
+                         GEN_B, "decode bf16 at S 1,024")
     return flash, decode
 
 
@@ -1132,14 +1215,130 @@ def flash_bound(b, h, hkv, n, d, q_off, itemsize, peak_bf16, peak_bw):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def decode_bound(b, h, hkv, d, lengths, itemsize, peak_bf16, peak_bw):
-    """(bound ms, bound_by) of one decode step: 4·H·len·D operations per row;
-    q and the output once, each row's live K/V slots once."""
+def decode_bytes(b, h, hkv, d, lengths, itemsize) -> int:
+    """The bytes one decode step must move: q and the output once, each
+    row's live K/V slots once."""
     live = int(np.asarray(lengths, np.int64).sum())
-    flops = 4 * h * live * d
-    nbytes = 2 * b * h * d * itemsize + 2 * hkv * live * d * itemsize
-    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    return 2 * b * h * d * itemsize + 2 * hkv * live * d * itemsize
+
+
+def decode_bound(b, h, hkv, d, lengths, itemsize, peak_bf16, peak_bw):
+    """(bound ms, bound_by) of one decode step: 4·H·len·D operations per row,
+    or decode_bytes at the memory rate."""
+    flops = 4 * h * int(np.asarray(lengths, np.int64).sum()) * d
+    t_ops = flops / peak_bf16 * 1e3
+    t_bytes = decode_bytes(b, h, hkv, d, lengths, itemsize) / peak_bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def host_us(fn, reps=200, rounds=5) -> float:
+    """Host microseconds a call of fn: the median over `rounds` of `reps`
+    calls back to back (after a synchronise, none inside: fewer launches
+    than the card's queue holds, so no call waits on the device)."""
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def length_sweep(dev, lengths=(0, 1, 64, 256, 1024, 4096, 16384), reps=100):
+    """The dense decode kernel alone at the path's widths (bf16, B 8, Hkv 4,
+    G 4, D 128) with every row at one length, cold in L2: its time against
+    the live bytes, and the least-squares line ms = fixed + bytes / rate
+    over the lengths of 64 and more, which parts the kernel's fixed cost
+    (launch, the chain of dependent loads, the cluster's barriers and
+    merge) from its streaming rate. Length 0 times the skeleton alone (no
+    tile, the merge of empty partials); length 1 one tile's chain."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf, hd, s = torch.bfloat16, LM_D // LM_HEADS, max(lengths)
+    q = torch.randn(GEN_B, LM_KV_HEADS, 4, hd, generator=g, device=dev).to(bf)
+    k, v = (torch.randn(GEN_B, LM_KV_HEADS, hd, s, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    rows = []
+    for n in lengths:
+        lens = torch.full((GEN_B,), n, dtype=torch.int32, device=dev)
+        ms = timed_cold_ms(lambda: da.decode_attention_cuda(q, k, v, lens), reps)
+        launched = da.last_launch()
+        mb = decode_bytes(GEN_B, LM_HEADS, LM_KV_HEADS, hd, [n] * GEN_B, 2) / 1e6
+        rows.append((n, mb, ms))
+        log(f"  decode length sweep: {n} slots a row, {mb:.3f} MB, {launched['stages']} "
+            f"stages: {ms:.4f} ms cold, {mb / ms:.1f} GB/s")
+    mbs, mss = (np.array([r[i] for r in rows if r[0] >= 64]) for i in (1, 2))
+    slope, fixed = np.polyfit(mbs, mss, 1)
+    log(f"  decode length sweep fit: {fixed * 1e3:.2f} us fixed + {1 / slope:.1f} GB/s "
+        f"streaming")
+    del k, v
+
+
+def decode_host_us(paged, q, k, v, lengths, table=None) -> dict:
+    """Host µs a launch of a decode wrapper, and of each of its parts: the
+    contract check (`_check`), the launch check (`_check_launch`), the
+    output's `torch.empty`, the stream lookup, and the C entry through
+    ctypes with its arguments made beforehand; beside them the stream
+    lookup that the wrapper made before."""
+    lib = da._library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    out = torch.empty(*q.shape[:3], v.shape[2], dtype=q.dtype, device=q.device)
+    scale, codes = 1.0 / math.sqrt(q.shape[-1]), (da._DTYPE_CODES[q.dtype],
+                                                  da._DTYPE_CODES[k.dtype])
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    if paged:
+        tensors, int32s = [q, k, v, table, lengths], [("lengths", lengths),
+                                                      ("page_table", table)]
+        args = (*ptrs, table.data_ptr(), lengths.data_ptr(), None, None, out.data_ptr(),
+                *q.shape[:4], v.shape[2], k.shape[3], table.shape[1], scale, 0.0, *codes,
+                stream)
+        entry, wrapper = lib.decode_attention_paged_launch, (
+            lambda: da.decode_attention_paged_cuda(q, k, v, table, lengths))
+    else:
+        tensors, int32s = [q, k, v, lengths], [("lengths", lengths)]
+        args = (*ptrs, lengths.data_ptr(), None, None, out.data_ptr(), *q.shape[:4],
+                v.shape[2], k.shape[3], scale, 0.0, *codes, stream)
+        entry, wrapper = lib.decode_attention_launch, (
+            lambda: da.decode_attention_cuda(q, k, v, lengths))
+    shape = (*q.shape[:3], v.shape[2])
+    parts = {
+        "_check": lambda: da._check(q, k, v, lengths, None, None, table),
+        "_check_launch": lambda: da._check_launch("decode", q, v, tensors, int32s,
+                                                  None, None),
+        "torch.empty": lambda: torch.empty(*shape, dtype=q.dtype, device=q.device),
+        "stream": lambda: da._stream(q),
+        "ctypes call": lambda: entry(*args),
+        "wrapper": wrapper,
+        # The stream lookup the wrapper made before, in place of "stream".
+        "current_stream (former)": lambda: torch.cuda.current_stream(q.device).cuda_stream,
+    }
+    return {name: host_us(fn) for name, fn in parts.items()}
+
+
+def decode_ptxas(report):
+    """[(instantiation, registers, spill store bytes, spill load bytes)] of
+    the decode kernel from nvcc's -Xptxas -v output."""
+    names = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+    out, kernel, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?decode_split_kernelI"
+                      r"(f|13__nv_bfloat16)(f|a|S\d*_)Li(\d+)ENS_\d+(\w+?Rows)ELb([01])ELb([01])E",
+                      line)
+        if m:
+            kv = names.get(m[2], names[m[1]])
+            kernel = (f"<{names[m[1]]}, {kv}, {m[3]}, {m[4]}, "
+                      f"{('element', '16-byte')[int(m[5])]}, {da.fold(int(m[6]))}>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m[1]), int(m[2]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m[1])) + spills)
+            kernel = None
+    return out
 
 
 def profiled(fn):
@@ -1260,12 +1459,16 @@ def paged_case(dev, dtype, pg, mp, lengths, *, int8=False, softcap=None,
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     o_k = da.decode_attention_paged_cuda(q, k, v, tbl, lengths, **kw)
     torch.cuda.synchronize()
+    launched = check_decode_launch(q, k, v, kw, "paged decode")
     check(bool(torch.isfinite(o_k).all()), "paged kernel output is not finite")
+    check(bool((o_k[lengths <= 0] == 0).all()), "a paged row of length <= 0 is not 0")
     o_p = da.decode_attention_paged_torch(q, k, v, tbl, lengths, **kw)
     torch.testing.assert_close(o_k, o_p, **TOLS[dtype])
     diff = _max_diff(o_k, o_p)
-    log(f"  paged {str(dtype)[6:]} B{b} Hkv{hkv} G{g_} D{d} pg{pg} MP{mp} int8 {int8} "
-        f"softcap {softcap} lengths {lengths.tolist()}: max abs diff {diff:.3e}")
+    log(f"  paged {str(dtype)[6:]} ({launched['route']}, {launched['fold']}, "
+        f"{launched['stages']} stages) "
+        f"B{b} Hkv{hkv} G{g_} D{d} pg{pg} MP{mp} int8 {int8} softcap {softcap} lengths "
+        f"{lengths.tolist()}: max abs diff {diff:.3e}")
     return diff
 
 
@@ -1280,19 +1483,50 @@ def paged_kernels_vs_plain(dev) -> float:
                 worst = max(worst, paged_case(dev, dtype, pg, mp, lengths, int8=int8,
                                               softcap=2.0 if int8 else None,
                                               seed=pg + int8))
-    # An identity table with one page as wide as the cache is the dense read.
+        # Every edge of the chunk plan over pages of 16, 64 and 256 slots.
+        # (pg 20: element loads in bf16 and int8, 16-byte copies in f32.)
+        for pg, mp in ((16, 36), (20, 30), (64, 9), (PAGE, 3)):
+            lengths = SPLIT_EDGES + [pg * mp, pg * mp + 100]
+            for int8 in (False, True):
+                worst = max(worst, paged_case(dev, dtype, pg, mp, lengths, int8=int8,
+                                              softcap=2.0 if int8 else None,
+                                              seed=2 * pg + int8))
+    # An identity table with one page as wide as the cache is the dense read
+    # of the same slots, bit for bit (the same chunks, folded alike): S 300
+    # (bf16: element loads; f32: 16-byte copies) and S 1,024.
     g = torch.Generator(device=dev).manual_seed(11)
-    q = torch.randn(GEN_B, LM_KV_HEADS, 4, 128, generator=g, device=dev)
-    k, v = (torch.randn(GEN_B, LM_KV_HEADS, 128, LM_MAX_LEN, generator=g, device=dev)
-            for _ in range(2))
-    lengths = torch.tensor([1, 64, 200, 511, 512, 700, 1000, 1024], dtype=torch.int32,
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (300, LM_MAX_LEN):
+            q = torch.randn(GEN_B, LM_KV_HEADS, 4, 128, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(GEN_B, LM_KV_HEADS, 128, s, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            lengths = torch.tensor([1, 64, 200, 299, 300, 700, 1000, 1024],
+                                   dtype=torch.int32, device=dev)
+            ident = torch.arange(GEN_B, dtype=torch.int32, device=dev)[:, None]
+            o_p = da.decode_attention_paged_cuda(q, k, v, ident, lengths)
+            launched = check_decode_launch(q, k, v, {}, "paged decode, identity table")
+            o_d = da.decode_attention_cuda(q, k, v, lengths)
+            torch.cuda.synchronize()
+            check(da.last_launch() == launched, f"dense launched {da.last_launch()}, "
+                  f"paged {launched}")
+            check(torch.equal(o_p, o_d), f"paged with an identity table and pg = S = {s} "
+                  f"differs from the dense kernel by {_max_diff(o_p, o_d):.3e}")
+            log(f"  paged {str(dtype)[6:]} ({launched['route']}, {launched['fold']}) with an "
+                f"identity table "
+                f"and pg = S = {s} equals the dense kernel bit for bit")
+    # A paged row reads alike alone and in the batch (the pool's pages in
+    # permuted order).
+    bf = torch.bfloat16
+    mp = LM_MAX_LEN // PAGE
+    q = torch.randn(GEN_B, LM_KV_HEADS, 4, 128, generator=g, device=dev).to(bf)
+    perm = torch.randperm(GEN_B * mp, generator=g, device=dev)
+    kp, vp = (torch.randn(GEN_B * mp, LM_KV_HEADS, 128, PAGE, generator=g, device=dev)
+              .to(bf) for _ in range(2))
+    tbl = torch.argsort(perm).to(torch.int32).view(GEN_B, mp)
+    lengths = torch.tensor([1, 64, 200, 511, 513, 700, 1000, 1024], dtype=torch.int32,
                            device=dev)
-    ident = torch.arange(GEN_B, dtype=torch.int32, device=dev)[:, None]
-    o_p = da.decode_attention_paged_cuda(q, k, v, ident, lengths)
-    o_d = da.decode_attention_cuda(q, k, v, lengths)
-    torch.testing.assert_close(o_p, o_d, rtol=1e-4, atol=1e-4)
-    log(f"  paged with an identity table and pg = S = {LM_MAX_LEN} vs the dense kernel: "
-        f"max abs diff {_max_diff(o_p, o_d):.3e}")
+    alone_and_in_a_batch(lambda i: da.decode_attention_paged_cuda(
+        q[i], kp, vp, tbl[i], lengths[i]), GEN_B, f"paged bf16 at pg {PAGE}")
     return worst
 
 
@@ -1526,15 +1760,26 @@ def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> 
     dense_ms = timed_cold_ms(lambda: da.decode_attention_cuda(qd, ck, cv, mid, **kw), 300)
     bound_ms, bound_by = decode_bound(GEN_B, LM_HEADS, LM_KV_HEADS, hd, mid.tolist(), 2,
                                       peak_bf16, peak_bw)
-    live_mb = 2 * LM_KV_HEADS * int(mid.sum()) * hd * 2 / 1e6
+    mb = decode_bytes(GEN_B, LM_HEADS, LM_KV_HEADS, hd, mid.tolist(), 2) / 1e6
+    paged_call()
+    torch.cuda.synchronize()
+    launched = check_decode_launch(qd, kp, vp, {}, "paged decode at the path's shape")
+    check((launched["route"], launched["fold"]) == ("16-byte", "mma"),
+          f"the path's paged read took {launched}")
+    host = decode_host_us(True, qd, kp, vp, mid, tbl)
     log(f"decode_attention_paged at B{GEN_B} Hkv{LM_KV_HEADS} G4 D{hd} pg{PAGE} MP{mp} "
-        f"bf16, lengths {mid.tolist()} ({live_mb:.1f} MB of live K/V), cold L2: kernel "
-        f"{ms:.4f} ms (warm {warm_ms:.4f} ms), plain {plain_ms:.4f} ms, dense kernel "
-        f"at the same lengths {dense_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
-        f"on the path (profiler, the 8 steps after the prefill) {paged_path_ms:.4f} ms "
-        f"a launch")
+        f"bf16, lengths {mid.tolist()} ({mb:.2f} MB), {launched['route']} copies, "
+        f"{launched['fold']} fold, {launched['stages']} stages, S_SPLIT {launched['s_split']} ({launched['clusters']} "
+        f"clusters held at once), cold L2: kernel "
+        f"{ms:.4f} ms ({mb / ms:.1f} GB/s; warm {warm_ms:.4f} ms, {mb / warm_ms:.1f} "
+        f"GB/s), plain {plain_ms:.4f} ms, dense kernel at the same lengths "
+        f"{dense_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); on the path "
+        f"(profiler, the 8 steps after the prefill) {paged_path_ms:.4f} ms a launch")
+    log("decode_attention_paged_cuda host us a launch: " + ", ".join(
+        f"{k} {x:.2f}" for k, x in host.items()))
     log("decode_attention_paged library_ms: null, no single PyTorch call reads "
         "attention through a page table")
+    length_sweep(dev)
     return {
         "name": "decode_attention_paged",
         "route": "cuda",
@@ -1542,8 +1787,15 @@ def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> 
         "replaces": "ku/pallas/decode_attention.py:224",
         "launches": launches[2],
         "max_abs_err": max_abs_err,
+        "copy_route": launched["route"],
+        "fold": launched["fold"],
+        "s_split": launched["s_split"],
+        "stages": launched["stages"],
+        "clusters": launched["clusters"],
         "ms": ms,
         "warm_ms": warm_ms,
+        "gbps": mb / ms,
+        "host_us": host["wrapper"],
         "path_ms": paged_path_ms,
         "plain_ms": plain_ms,
         "dense_ms": dense_ms,
@@ -1703,6 +1955,21 @@ def serving_path(dev, name) -> list:
     decode_warm_ms = timed_ms(decode, 300)
     decode_bound_ms, decode_by = decode_bound(GEN_B, LM_HEADS, LM_KV_HEADS, hd,
                                               mid.tolist(), 2, peak_bf16, peak_bw)
+    decode_mb = decode_bytes(GEN_B, LM_HEADS, LM_KV_HEADS, hd, mid.tolist(), 2) / 1e6
+    decode()
+    torch.cuda.synchronize()
+    decode_launch = check_decode_launch(qd, ck, cv, {}, "decode at the path's shape")
+    check((decode_launch["route"], decode_launch["fold"]) == ("16-byte", "mma"),
+          f"the path's dense read took {decode_launch}")
+    decode_host = decode_host_us(False, qd, ck, cv, mid)
+    # Every instantiation of the decode kernel (both entries, both routes)
+    # without a spill.
+    ptxas = decode_ptxas(BUILD_REPORTS.get(da.NAME, ""))
+    check(len(ptxas) == 36, f"ptxas reported {len(ptxas)} decode instantiations, not 36")
+    for kernel, regs, st, ld in ptxas:
+        log(f"  decode_split_kernel{kernel}: {regs} registers, spill stores {st} B, "
+            f"loads {ld} B")
+    check(all(st == ld == 0 for _, _, st, ld in ptxas), "a decode instantiation spills")
     # The standalone call under the profiler, warm and cold, to set beside
     # path_ms: one clock for all three.
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -1720,11 +1987,17 @@ def serving_path(dev, name) -> list:
         f"{flash_bound_ms:.5f} ms ({flash_by}); on the path (profiler, prefill "
         f"lengths {lens_np.tolist()}) {flash_path_ms:.4f} ms a launch")
     log(f"decode_attention at B{GEN_B} Hkv{LM_KV_HEADS} G4 D{hd} S{LM_MAX_LEN} bf16, "
-        f"lengths {mid.tolist()}, cold L2: kernel {decode_ms:.4f} ms (warm "
-        f"{decode_warm_ms:.4f} ms), plain {decode_plain_ms:.4f} ms, SDPA "
-        f"{decode_lib_ms:.4f} ms, bound {decode_bound_ms:.5f} ms ({decode_by}); "
-        f"standalone under the profiler {alone_cold_ms:.4f} ms cold, on the path "
-        f"(profiler, the 8 steps after the prefill) {decode_path_ms:.4f} ms a launch")
+        f"lengths {mid.tolist()} ({decode_mb:.2f} MB), {decode_launch['route']} "
+        f"copies, {decode_launch['fold']} fold, {decode_launch['stages']} stages, S_SPLIT {decode_launch['s_split']} "
+        f"({decode_launch['clusters']} clusters held at once), "
+        f"cold L2: kernel {decode_ms:.4f} ms ({decode_mb / decode_ms:.1f} GB/s; warm "
+        f"{decode_warm_ms:.4f} ms, {decode_mb / decode_warm_ms:.1f} GB/s), plain "
+        f"{decode_plain_ms:.4f} ms, SDPA {decode_lib_ms:.4f} ms, bound "
+        f"{decode_bound_ms:.5f} ms ({decode_by}); standalone under the profiler "
+        f"{alone_cold_ms:.4f} ms cold, on the path (profiler, the 8 steps after the "
+        f"prefill) {decode_path_ms:.4f} ms a launch")
+    log("decode_attention_cuda host us a launch: " + ", ".join(
+        f"{k} {x:.2f}" for k, x in decode_host.items()))
     log(f"max abs diff kernel vs plain: flash {flash_err:.3e}, decode "
         f"{decode_err:.3e}; f32 LM through the kernels vs plain {f32_err:.3e}")
     paged = paged_serving(dev, name, lm, embed, readout, paged_prompts, paged_lens,
@@ -1749,7 +2022,15 @@ def serving_path(dev, name) -> list:
         "replaces": "ku/pallas/decode_attention.py:80",
         "launches": gen_decode,
         "max_abs_err": max(decode_err, f32_err),
+        "copy_route": decode_launch["route"],
+        "fold": decode_launch["fold"],
+        "s_split": decode_launch["s_split"],
+        "stages": decode_launch["stages"],
+        "clusters": decode_launch["clusters"],
         "ms": decode_ms,
+        "warm_ms": decode_warm_ms,
+        "gbps": decode_mb / decode_ms,
+        "host_us": decode_host["wrapper"],
         "path_ms": decode_path_ms,
         "plain_ms": decode_plain_ms,
         "bound_ms": decode_bound_ms,

@@ -5,14 +5,23 @@ Port of ``ku/pallas/decode_attention.py``. One source,
 ``ku_torch/csrc/decode_attention.cu``, holds one online-softmax fold with two
 ways of addressing a slot: it replaces ``_kernel`` (dense) and the three
 paged variants ``_paged_kernel``, ``_paged_kernel_v3`` and
-``_paged_kernel_v4``. One block per (row, KV head) reads the row's live
-slots once and folds them for the G query heads of that KV head. Its source
-note says what bounds it on an H100 (bytes; at the serving shapes, latency)
-and what the design does about that.
+``_paged_kernel_v4``. Each (row, KV head) is a cluster of :data:`S_SPLIT`
+blocks: block r folds the r-th chunk of the row's live slots
+(:func:`split_plan`, a plan that depends on the row's clamped length alone)
+for the G query heads of that KV head, streaming its tiles of :data:`TILE`
+slots through a ring of 16-byte ``cp.async`` copies and folding them on
+the tensor cores where q and the cache are bf16 (:func:`fold_route`), on
+the CUDA cores otherwise, and the blocks merge their partials (m, l, acc)
+in distributed shared memory in the fixed order 0..S_SPLIT-1. The source
+note says what bounds the kernel on an H100 (the bytes of the live K/V, a
+few microseconds at the serving shapes) and how the design fights the
+latency that is left.
 
 - :func:`decode_attention_cuda` / :func:`decode_attention_paged_cuda` launch
   the kernel. They take CUDA tensors only and add one to their
-  ``launches`` per launch.
+  ``launches`` per launch. :func:`last_launch` says what the C entry
+  launched last: its copy route (:func:`copy_route`), its fold
+  (:func:`fold_route`), its stages and its blocks a cluster.
 - :func:`decode_attention_torch` / :func:`decode_attention_paged_torch` are
   the plain versions: the same function in torch ops, on any device.
 - :func:`decode_attention` / :func:`decode_attention_paged` pick by the
@@ -57,6 +66,42 @@ NAME = "decode_attention"
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "decode_attention.cu"
 _MASKED = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+S_SPLIT = 8  # blocks of a cluster: the chunks of a row's live slots
+TILE = 64  # slots of a tile; a chunk is a multiple of it
+
+
+def split_chunk(length: int) -> int:
+    """The slots of each chunk of a row of ``length`` live slots (already
+    clamped to its window), as the kernel plans it: ceil(length / S_SPLIT)
+    rounded up to a whole tile; 0 for length <= 0."""
+    if length <= 0:
+        return 0
+    per = -(-length // S_SPLIT)
+    return -(-per // TILE) * TILE
+
+
+def split_plan(length: int) -> list:
+    """The chunk [start, stop) that block r = 0..S_SPLIT-1 of a row's
+    cluster folds, for a row of ``length`` live slots (already clamped to
+    its window): consecutive chunks of :func:`split_chunk` slots, the last
+    cut at ``length``; a block past it gets an empty chunk (start == stop)
+    and reads nothing. The plan depends on the length alone, never on B, S,
+    pg or MP, so a paged and a dense read of the same slots, or a row alone
+    and in a batch, fold alike."""
+    n = max(length, 0)
+    c = split_chunk(n)
+    return [(min(r * c, n), min((r + 1) * c, n)) for r in range(S_SPLIT)]
+
+
+def copy_route(k, v, k_scale=None, v_scale=None) -> str:
+    """How a launch reads the cache or pools, from their shapes and start
+    addresses alone, as the C entries decide it: ``"16-byte"`` copies where
+    every 16-byte segment of the slot axis is whole and aligned (S or pg a
+    multiple of 16 / itemsize slots, every base 16-byte aligned), else
+    ``"element"`` loads. Both run the same fold."""
+    whole = k.shape[-1] % (16 // k.element_size()) == 0
+    bases = [k, v] + ([k_scale, v_scale] if k_scale is not None else [])
+    return "16-byte" if whole and all(t.data_ptr() % 16 == 0 for t in bases) else "element"
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,9 +112,43 @@ def _library() -> ctypes.CDLL:
     lib.decode_attention_launch.restype = i
     lib.decode_attention_paged_launch.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
     lib.decode_attention_paged_launch.restype = i
+    lib.decode_attention_last_launch.argtypes = []
+    lib.decode_attention_last_launch.restype = i
+    lib.decode_attention_split_chunk.argtypes = [i]
+    lib.decode_attention_split_chunk.restype = i
     lib.decode_attention_error_string.argtypes = [i]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def last_launch() -> Optional[dict]:
+    """What the last launch of either C entry took, as it reports it:
+    ``{"route": "16-byte" or "element", "fold": "mma" or "fma", "stages":
+    its ring's stages, "s_split": its blocks a cluster, "clusters": how many
+    of its clusters the card holds at once}``; None before the first
+    launch."""
+    code = _library().decode_attention_last_launch()
+    if code < 0:
+        return None
+    return {"route": ("element", "16-byte")[code & 1], "fold": fold(code >> 8 & 1),
+            "stages": (code >> 1) & 7, "s_split": (code >> 4) & 15,
+            "clusters": code >> 9}
+
+
+def fold(on_tensor_cores) -> str:
+    """The name of a fold: ``"mma"`` on the tensor cores, ``"fma"`` on the
+    CUDA cores."""
+    return "mma" if on_tensor_cores else "fma"
+
+
+def fold_route(q, k, v) -> str:
+    """Where a launch folds, from dtypes and shapes, as the C entries decide
+    it: the tensor cores (``"mma"``: bf16 q and K/V, G <= 4, D <= 128 and
+    D, Dv multiples of 16, q 4-byte aligned), else the CUDA cores
+    (``"fma"``)."""
+    g, d, dv = q.shape[2], q.shape[3], v.shape[2]
+    return fold(q.dtype == k.dtype == torch.bfloat16 and g <= 4 and d % 16 == 0
+                and d <= 128 and dv % 16 == 0 and q.data_ptr() % 4 == 0)
 
 
 def _check(q, k, v, lengths, k_scale, v_scale, page_table=None):
@@ -108,11 +187,13 @@ def _check_launch(name, q, v, tensors, int32s, k_scale, v_scale):
     G <= 16, Dv <= 128."""
     device = q.device
     for t in tensors:
-        if t.device != device or device.type != "cuda":
+        if t.device != device:
             raise ValueError(f"{name} takes CUDA tensors on one device, got "
                              f"{t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors on one device, got {device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
     for what, t in int32s:
@@ -133,6 +214,13 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.decode_attention_error_string(err).decode()} "
                            f"({err})")
+
+
+def _stream(q) -> int:
+    """The current CUDA stream of q's device, as the raw handle the C
+    entries take (PyTorch's own lookup, without building a Stream object:
+    a few microseconds less of host time on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(q.device.index)
 
 
 def _scale(q, softmax_scale):
@@ -162,7 +250,7 @@ def decode_attention_cuda(q, k, v, lengths, *, k_scale=None, v_scale=None,
         v_scale.data_ptr() if v_scale is not None else None,
         out.data_ptr(), bsz, hkv, g, d, dv, s, float(_scale(q, softmax_scale)),
         float(logit_softcap or 0.0), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[k.dtype], _stream(q))
     _raise_on(err, "decode_attention")
     decode_attention_cuda.launches += 1
     return out
@@ -202,8 +290,7 @@ def decode_attention_paged_cuda(q, k_pool, v_pool, page_table, lengths, *,
         v_scale.data_ptr() if v_scale is not None else None,
         out.data_ptr(), bsz, hkv, g, d, dv, pg, page_table.shape[1],
         float(_scale(q, softmax_scale)), float(logit_softcap or 0.0),
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype], _stream(q))
     _raise_on(err, "decode_attention_paged")
     decode_attention_paged_cuda.launches += 1
     return out

@@ -379,6 +379,7 @@ def test_paged_decode_attention_matches_plain(device, case, dtype):
     out = da.decode_attention_paged(q, k, v, table, lengths, **kw)
     torch.cuda.synchronize()
     assert da.decode_attention_paged_cuda.launches == before + 1
+    assert da.last_launch()["route"] == ("element" if c["pg"] == 7 else "16-byte")
     assert torch.isfinite(out).all()
     torch.testing.assert_close(
         out, da.decode_attention_paged_torch(q, k, v, table, lengths, **kw),
@@ -395,16 +396,27 @@ def test_paged_decode_attention_overrun_reads_the_whole_window(device):
                                rtol=0, atol=0)
 
 
-def test_paged_decode_attention_identity_table_is_the_dense_kernel(device):
+@pytest.mark.parametrize("dtype, s", [(torch.float32, 300), (torch.bfloat16, 300),
+                                      (torch.float32, 1024), (torch.bfloat16, 1024)])
+def test_paged_decode_attention_identity_table_is_the_dense_kernel(device, dtype, s):
+    """One page as wide as the cache, through an identity table, is the
+    dense read of the same slots, bit for bit: both fold the chunks of
+    split_plan in the same order. bf16 at S 300 takes the element loads,
+    the rest the 16-byte copies (a segment holds 4 f32 or 8 bf16 slots)."""
     gen = torch.Generator(device=device).manual_seed(5)
-    q = torch.randn(3, 2, 4, 64, generator=gen, device=device)
-    k, v = (torch.randn(3, 2, 64, 300, generator=gen, device=device)
+    q = torch.randn(3, 2, 4, 64, generator=gen, device=device).to(dtype)
+    k, v = (torch.randn(3, 2, 64, s, generator=gen, device=device).to(dtype)
             for _ in range(2))
-    lengths = torch.tensor([300, 129, 1], dtype=torch.int32, device=device)
+    lengths = torch.tensor([s, 129, 1], dtype=torch.int32, device=device)
     table = torch.arange(3, dtype=torch.int32, device=device)[:, None]
-    torch.testing.assert_close(da.decode_attention_paged_cuda(q, k, v, table, lengths),
-                               da.decode_attention_cuda(q, k, v, lengths),
-                               rtol=1e-4, atol=1e-4)
+    o_p = da.decode_attention_paged_cuda(q, k, v, table, lengths)
+    launched_p = da.last_launch()
+    o_d = da.decode_attention_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert launched_p == da.last_launch()
+    assert launched_p["route"] == da.copy_route(k, v) == (
+        "element" if (dtype, s) == (torch.bfloat16, 300) else "16-byte")
+    assert torch.equal(o_p, o_d)
 
 
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(device):
@@ -490,6 +502,143 @@ def test_reallocated_page_is_never_written_by_its_former_row_on_the_card(device)
     alone = generate(_tiny_lm(device, use_flash=True, kv_page_size=4),
                      torch.from_numpy(b).to(device)[None], 4, **io)
     np.testing.assert_array_equal(out[2], alone[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Split-K over a cluster (kernels #6 and #7): lengths at every edge of the
+# kernel's chunk plan (da.split_plan), both copy routes as the C entry
+# reports them, the plan itself as the C entry computes it, and the two
+# bit-for-bit invariants (a row alone and in a batch).
+# ---------------------------------------------------------------------------
+
+SPLIT_EDGES = [0, -1, 1, 63, 64, 65, 511, 512, 513]
+
+
+def _dense_inputs(device, dtype, b, hkv, g_, d, dv, s, int8, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, hkv, g_, d, generator=gen, device=device).to(dtype)
+    kw = {}
+    if int8:
+        k, v = (torch.randint(-127, 128, (b, hkv, w, s), generator=gen,
+                              device=device).to(torch.int8) for w in (d, dv))
+        kw["k_scale"], kw["v_scale"] = (
+            torch.rand(b, hkv, s, generator=gen, device=device) * 0.02 for _ in range(2))
+    else:
+        k, v = (torch.randn(b, hkv, w, s, generator=gen, device=device).to(dtype)
+                for w in (d, dv))
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(g=4, d=128, dv=128, s=1024),
+    dict(g=1, d=64, dv=64, s=1024),
+    dict(g=16, d=64, dv=32, s=1024),
+    dict(g=4, d=128, dv=96, s=1024, int8=True, softcap=2.0),
+    # The element loads: S not a multiple of a 16-byte segment's slots.
+    dict(g=4, d=64, dv=48, s=77),
+    dict(g=16, d=32, dv=32, s=130, int8=True, softcap=2.0),
+])
+def test_decode_split_edges_match_plain(device, case, dtype):
+    c = case
+    lengths = SPLIT_EDGES + [c["s"], c["s"] + 100]
+    q, k, v, kw = _dense_inputs(device, dtype, len(lengths), 2, c["g"], c["d"], c["dv"],
+                                c["s"], c.get("int8", False), seed=7)
+    kw.update(softmax_scale=0.05, logit_softcap=c.get("softcap"))
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    out = da.decode_attention_cuda(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    launched = da.last_launch()
+    assert launched["s_split"] == da.S_SPLIT
+    assert launched["route"] == da.copy_route(k, v, kw.get("k_scale"), kw.get("v_scale"))
+    assert launched["route"] == ("16-byte" if c["s"] == 1024 else "element")
+    assert launched["fold"] == da.fold_route(q, k, v) == (
+        "mma" if dtype == torch.bfloat16 and c["g"] <= 4 and not c.get("int8") else "fma")
+    assert torch.isfinite(out).all()
+    assert torch.all(out[:2] == 0)  # lengths 0 and -1
+    torch.testing.assert_close(out, da.decode_attention_torch(q, k, v, lengths, **kw),
+                               **SERVE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(g=4, d=128, pg=16, mp=36),
+    dict(g=1, d=64, pg=64, mp=9),
+    dict(g=16, d=64, pg=256, mp=3, int8=True, softcap=2.0),
+])
+def test_paged_split_edges_match_plain(device, case, dtype):
+    """Permuted tables whose dead entries name a NaN-poisoned page: no block
+    reads one, not even a block with an empty chunk."""
+    c = case
+    lengths = SPLIT_EDGES + [c["pg"] * c["mp"], c["pg"] * c["mp"] + 100]
+    q, k, v, table, lengths, kw = _paged_inputs(
+        device, dtype, len(lengths), 2, c["g"], c["d"], c["pg"], c["mp"], lengths,
+        c.get("int8", False), seed=8)
+    kw.update(softmax_scale=0.05, logit_softcap=c.get("softcap"))
+    out = da.decode_attention_paged_cuda(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    launched = da.last_launch()
+    assert launched["route"] == da.copy_route(k, v, kw.get("k_scale"), kw.get("v_scale"))
+    assert launched["route"] == "16-byte" and launched["s_split"] == da.S_SPLIT
+    assert launched["fold"] == da.fold_route(q, k, v)
+    assert torch.isfinite(out).all()
+    assert torch.all(out[:2] == 0)
+    torch.testing.assert_close(
+        out, da.decode_attention_paged_torch(q, k, v, table, lengths, **kw),
+        **SERVE_TOL[dtype])
+
+
+def test_the_path_shape_takes_the_cluster_split_16_byte_route(device):
+    """bf16, B 8, Hkv 4, G 4, D 128: the dense 1,024-slot cache and 256-slot
+    pages take the 16-byte copies and the tensor cores, 8 blocks a cluster,
+    at a number of stages at which the card holds all 32 clusters at
+    once."""
+    q, k, v, _ = _dense_inputs(device, torch.bfloat16, 8, 4, 4, 128, 128, 1024, False, 9)
+    lengths = torch.tensor([192, 200, 210, 220, 230, 240, 250, 256], dtype=torch.int32,
+                           device=device)
+    da.decode_attention_cuda(q, k, v, lengths)
+    launched = da.last_launch()
+    assert launched["route"] == "16-byte" and launched["s_split"] == 8
+    assert launched["fold"] == "mma"
+    assert 2 <= launched["stages"] <= 4 and launched["clusters"] >= 32
+    pool_k, pool_v = (x.view(8, 4, 128, 4, 256).permute(0, 3, 1, 2, 4).reshape(32, 4, 128, 256)
+                      for x in (k, v))
+    table = torch.arange(32, dtype=torch.int32, device=device).view(8, 4)
+    da.decode_attention_paged_cuda(q, pool_k, pool_v, table, lengths)
+    torch.cuda.synchronize()
+    assert da.last_launch() == launched
+
+
+def test_c_entry_split_chunk_is_split_plan(device):
+    lib = da._library()
+    for n in list(range(-2, 1200)) + [2047, 2048, 2049, 65536, 100003]:
+        c = lib.decode_attention_split_chunk(n)
+        assert c == da.split_chunk(n), n
+        plan = da.split_plan(n)
+        assert all(hi - lo == c for lo, hi in plan if hi < max(n, 0)), n
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_row_reads_alike_alone_and_in_a_batch(device, paged):
+    """A row's output depends on its own length and slots only: row i of a
+    batch of 8 equals the same row read at B = 1, bit for bit."""
+    q, k, v, _ = _dense_inputs(device, torch.bfloat16, 8, 4, 4, 128, 128, 1024, False, 10)
+    lengths = torch.tensor([1, 64, 200, 511, 513, 700, 1000, 1024], dtype=torch.int32,
+                           device=device)
+    if paged:
+        pool_k, pool_v = (x.view(8, 4, 128, 4, 256).permute(0, 3, 1, 2, 4)
+                          .reshape(32, 4, 128, 256) for x in (k, v))
+        perm = torch.randperm(32, generator=torch.Generator(device=device).manual_seed(3),
+                              device=device)
+        table = torch.argsort(perm).to(torch.int32).view(8, 4)
+        pool_k, pool_v = pool_k[perm].contiguous(), pool_v[perm].contiguous()
+        read = lambda i: da.decode_attention_paged_cuda(  # noqa: E731
+            q[i], pool_k, pool_v, table[i], lengths[i])
+    else:
+        read = lambda i: da.decode_attention_cuda(q[i], k[i], v[i], lengths[i])  # noqa: E731
+    batch = read(slice(None))
+    for i in range(8):
+        assert torch.equal(read(slice(i, i + 1)), batch[i:i + 1]), i
 
 
 # ---------------------------------------------------------------------------
