@@ -8,46 +8,61 @@ the CUDA toolkit:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: CUDA must be present; print the card's name and power limit.
-2. Build: compile the six kernel sources of ku_torch/csrc with nvcc, one
-   process per source, all started together; print their register and
-   spill lines (kept for phase 19).
-3. CD kernel against its plain version on the card, same inputs:
+2. Build: compile the six kernel sources of ku_torch/csrc with nvcc, and
+   kernel #1's probe build (-DCD_PROBE), one process per build, all
+   started together; print their register and spill lines (kept for phase
+   19) and the CD cluster route's plans at the path's shapes.
+3. CD kernel against its plain version on the card, same inputs, on both
+   routes (the cluster route at 16 blocks and at 8, the global route),
+   each launch's route, cluster size, batch tile and shared memory as the
+   C entry reports them held against cluster_plan:
    - saturated biases (every draw certain), Bernoulli, k = 1 and 2, ragged
      last batch, 2 epochs: params and scores rtol 1e-5 / atol 1e-5;
    - random parameters, all three modes, shared Philox draws, V = 784,
-     H = 128, B = 128, 3 steps: params rtol 1e-5 / atol 1e-5, scores
-     rtol 1e-4 / atol 1e-4 (float32 sums in another order; a few steps, so
-     that no Bernoulli threshold moves by an ulp).
+     H = 128, B = 128, 3 steps, and the DBN's two layers: params rtol 1e-5
+     / atol 1e-5, scores rtol 1e-4 / atol 1e-4 (float32 sums in another
+     order; a few steps, so that no Bernoulli threshold moves by an ulp);
+   - the card tests' ragged shapes (37 x 45 at batch 40, 6 x 4 at 16,
+     200 x 70 at 150) and V = 100, which 16 and 8 blocks do not divide.
+   Then the C entry's plans against cluster_plan, and a W past the shared-
+   memory budget (4096 x 1024): the global route by the shape, a forced
+   cluster launch refused.
 4. RBM path: RBM({"lr": 1e-3, "batch_size": 128, "epochs": 3}, 128).fit on
    bench.py's synthetic MNIST-like data (N = 60,032, V = 784, p = 0.13);
    then the DBN 784 → 256 → 128, one epoch a layer, and its transform. The
-   CD kernel's launch count must rise, every score be finite, and the
-   reconstruction error fall.
+   CD kernel must launch 3 times, all on the cluster route, every score be
+   finite, and the reconstruction error fall.
 5. RBM timing with CUDA events after warm-up: samples/s of RBM.fit, and the
-   kernel, its plain version and the bound at the path's shape.
+   kernel (the cluster route), its plain version and the bound at the
+   path's shape; the global route and the cluster route at 8 blocks beside
+   it, in turns; each route's split of a step into its phases over 64
+   steps (the probe build: every block stamps %globaltimer at each phase's
+   end).
 20. (Run right after phase 5, on its data.) Data-parallel CD-k, kernel #2
    (the statistics and apply step kernels), against its plain version on
    the card with the same Philox draws, at world size 1 and at 4 ranks
    emulated in one process (their buffers summed in rank order in place of
-   the all-reduce), with phase 3's cases and limits: saturated, k 1 and 2,
-   2 epochs, a ragged last shard; random parameters in all three modes,
-   3 steps. Then world size 1 against kernel #1 over the path's 3 epochs,
-   bit for bit (the same device code and sums), and 4 ranks emulated
-   against kernel #1 (saturated over 2 epochs, random over 3 steps; params
-   rtol/atol 1e-5, scores 1e-4: sums in another order).
+   the all-reduce), on both routes, with phase 3's cases and limits:
+   saturated, k 1 and 2, 2 epochs, a ragged last shard; random parameters
+   in all three modes, 3 steps. Then world size 1 against kernel #1 over
+   the path's 3 epochs, bit for bit (the same device code and sums), on
+   each route, and 4 ranks emulated against kernel #1 (saturated over 2
+   epochs, random over 3 steps; params rtol/atol 1e-5, scores 1e-4: sums
+   in another order).
 21. The path: RBM({"lr": 1e-3, "batch_size": 128, "epochs": 3}, 128).fit(V,
    mesh=make_mesh()) in a real NCCL world of one process, on phase 4's
-   data: 1,407 launches of each step kernel and none of kernel #1, finite
-   scores, a falling reconstruction error, params equal to phase 4's
-   single-device fit bit for bit; then the DBN 784 -> 256 -> 128 with
-   mesh=.
+   data: 1,407 launches of each step kernel (the statistics all on the
+   cluster route) and none of kernel #1, finite scores, a falling
+   reconstruction error, params equal to phase 4's single-device fit bit
+   for bit; then the DBN 784 -> 256 -> 128 with mesh=.
 22. Timing: RBM.fit with and without the mesh in turns (samples/s); the
    data-parallel run beside kernel #1's; a torch.profiler window over 20
    steps (each step kernel's and the all-reduce's device time a step, the
    host time a step, the device busy share); the host time of each of a
    step's three calls (two launches and the all-reduce) over 200 steps;
-   the step kernels alone at the path's shape, cold in L2, against their
-   plain version and their bound.
+   the step kernels alone at the path's shape, cold in L2, on the cluster
+   route and on the global route, against their plain version and their
+   bound.
    The process group is destroyed at the end of the phase.
 6. Serving kernels against their plain versions on the card, f32
    (rtol/atol 1e-4: f32 sums in another order) and bf16 (rtol 1e-2, just
@@ -522,35 +537,77 @@ def problem(dev, v_dim, h_dim, batch, steps, mode, saturated, seed):
     return params, torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev)
 
 
+# Phase 3's cases, (V, H, batch, mode, k, saturated, steps, epochs): the
+# RBM's shape, the DBN's two layers, the card tests' ragged shapes, and a V
+# that 16 and 8 blocks do not divide.
+CD_CASES = ([(V_DIM, H_DIM, BATCH, 0, k, True, 4, 2) for k in (1, 2)]
+            + [(V_DIM, H_DIM, BATCH, mode, 1, False, 3, 1) for mode in (0, 1, 2)]
+            + [(V_DIM, 256, BATCH, 0, 1, False, 2, 1), (256, H_DIM, BATCH, 0, 1, False, 2, 1)]
+            + [(37, 45, 40, 0, 2, True, 3, 2), (6, 4, 16, 0, 1, True, 4, 2),
+               (200, 70, 150, 0, 1, True, 2, 2), (37, 45, 40, 2, 1, False, 3, 1)]
+            + [(100, H_DIM, BATCH, 0, 1, False, 3, 1)])
+# The launches phase 3 makes of each case: (route, cluster size).
+CD_ROUTES = (("cluster", None), ("global", None), ("cluster", 8))
+
+
 def check_against_plain(dev) -> float:
     """Phase 3; returns the largest abs difference seen."""
     worst = 0.0
-    # (V, H, mode, k, saturated, steps, epochs): the RBM's shape, then the
-    # DBN's two layers.
-    cases = [(V_DIM, H_DIM, 0, k, True, 4, 2) for k in (1, 2)]
-    cases += [(V_DIM, H_DIM, mode, 1, False, 3, 1) for mode in (0, 1, 2)]
-    cases += [(V_DIM, 256, 0, 1, False, 2, 1), (256, H_DIM, 0, 1, False, 2, 1)]
-    for v_dim, h_dim, mode, k, saturated, steps, epochs in cases:
-        params, v_all, mask = problem(dev, v_dim, h_dim, BATCH, steps, mode,
+    for v_dim, h_dim, batch, mode, k, saturated, steps, epochs in CD_CASES:
+        plan = cd_gibbs.cluster_plan(batch, v_dim, h_dim)
+        check(plan["route"] == "cluster", f"{v_dim}x{h_dim} at batch {batch} is not on "
+              f"the cluster route: {plan}")
+        params, v_all, mask = problem(dev, v_dim, h_dim, batch, steps, mode,
                                       saturated, seed=10 + mode)
-        args = (params, v_all, mask, 4321, LR, k, mode, BATCH, epochs)
-        p_k, s_k = cd_gibbs.cd_train_cuda(*args)
-        torch.cuda.synchronize()
+        args = (params, v_all, mask, 4321, LR, k, mode, batch, epochs)
         p_p, s_p = cd_gibbs.cd_train_torch(*args)
         torch.cuda.synchronize()
         s_tol = (1e-5, 1e-5) if saturated else (1e-4, 1e-4)
-        for name in p_k:
-            torch.testing.assert_close(p_k[name], p_p[name], rtol=1e-5, atol=1e-5,
-                                       msg=f"{name}, mode {mode}, k {k}")
-        torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1],
-                                   msg=f"scores, mode {mode}, k {k}")
-        p_diff = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
-        s_diff = float((s_k - s_p).abs().max())
-        worst = max(worst, p_diff, s_diff)
-        log(f"kernel vs plain: {v_dim}x{h_dim} mode {mode} k {k} saturated "
-            f"{saturated} steps {steps * epochs}: max abs diff params "
-            f"{p_diff:.3e}, scores {s_diff:.3e} (largest score "
-            f"{float(s_p.abs().max()):.3e})")
+        for route, cluster in CD_ROUTES:
+            if cluster is not None and cd_gibbs.cluster_plan(batch, v_dim, h_dim,
+                                                             cluster)["route"] != "cluster":
+                continue
+            p_k, s_k = cd_gibbs.cd_train_cuda(*args, route=route, cluster=cluster)
+            torch.cuda.synchronize()
+            launch = cd_gibbs.last_launch()
+            want = cd_gibbs.cluster_plan(batch, v_dim, h_dim, cluster or 16)
+            check(launch["route"] == route, f"asked for the {route} route, got {launch}")
+            if route == "cluster":
+                check(launch["cluster"] == (cluster or 16)
+                      and launch["batch_tile"] == want["batch_tile"]
+                      and launch["smem_bytes"] == want["smem_bytes"],
+                      f"the C entry launched {launch}, cluster_plan says {want}")
+            what = f"{v_dim}x{h_dim} B {batch} mode {mode} k {k}, {route} route"
+            for name in p_k:
+                torch.testing.assert_close(p_k[name], p_p[name], rtol=1e-5, atol=1e-5,
+                                           msg=f"{name}, {what}")
+            torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1],
+                                       msg=f"scores, {what}")
+            p_diff = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
+            s_diff = float((s_k - s_p).abs().max())
+            worst = max(worst, p_diff, s_diff)
+            log(f"kernel vs plain: {what} (C {launch['cluster']}, batch tile "
+                f"{launch['batch_tile']}), saturated {saturated}, steps {steps * epochs}: "
+                f"max abs diff params {p_diff:.3e}, scores {s_diff:.3e} (largest score "
+                f"{float(s_p.abs().max()):.3e})")
+    # The C entry's plans are cluster_plan's, and a W past the budget takes
+    # the global route; the cluster route refuses it rather than fall back.
+    for shape in [(BATCH, V_DIM, H_DIM), (BATCH, V_DIM, 256), (BATCH, 256, H_DIM),
+                  (40, 37, 45), (BATCH // DP_WORLD, V_DIM, H_DIM), (BATCH, 4096, 1024)]:
+        for cluster in (16, 8):
+            want = cd_gibbs.cluster_plan(*shape, cluster)
+            got = cd_gibbs.c_plan(*shape, cluster)
+            check(all(got[key] == want[key] for key in got) or want["route"] == "global"
+                  and got["smem_bytes"] == 0, f"plan at {shape}, C {cluster}: C {got}, "
+                  f"Python {want}")
+    params, v_all, mask = problem(dev, 4096, 1024, 8, 1, 0, True, seed=12)
+    check(cd_gibbs.route_for(8, 4096, 1024) == "global", "4096x1024 is not global")
+    try:
+        cd_gibbs.cd_train_cuda(params, v_all, mask, 1, LR, 1, 0, 8, 1, route="cluster")
+    except RuntimeError as e:
+        log(f"a forced cluster launch past the budget is refused: {e}")
+    else:
+        check(False, "a cluster launch past the budget ran")
     return worst
 
 
@@ -567,6 +624,7 @@ def rbm_path(dev, name):
     V = torch.from_numpy(mnist_like()).to(dev)
     probe = V[:4096]
     cd_gibbs.cd_train_cuda.launches = 0
+    cd_gibbs.cd_train_cuda.by_route = {r: 0 for r in cd_gibbs.ROUTES}
     rbm = RBM({"lr": LR, "batch_size": BATCH, "epochs": EPOCHS}, H_DIM,
               input_dim=V_DIM, seed=0, device=dev)
     err_before = recon_error(rbm, probe)
@@ -599,9 +657,13 @@ def rbm_path(dev, name):
     launches = cd_gibbs.cd_train_cuda.launches
     check(launches == 3,
           f"expected 3 kernel launches (RBM + 2 DBN layers), got {launches}")
+    by_route = dict(cd_gibbs.cd_train_cuda.by_route)
+    check(by_route == {"global": 0, "cluster": 3},
+          f"the path's launches by route: {by_route}")
     check(dbn.inv_transform(h).shape == (N, V_DIM), "DBN inv_transform shape")
     log(f"DBN 784-256-128: transform {tuple(h.shape)}, mean activation "
-        f"{float(h.mean()):.4f}; kernel launches on the main path: {launches}")
+        f"{float(h.mean()):.4f}; kernel launches on the main path: {launches}, by "
+        f"route {by_route}; the last {cd_gibbs.last_launch()}")
 
     fit_ms = timed_ms(lambda: RBM({"lr": LR, "batch_size": BATCH, "epochs": EPOCHS},
                                   H_DIM, input_dim=V_DIM, seed=3, device=dev
@@ -614,19 +676,40 @@ def rbm_path(dev, name):
     run = (params, V, mask, 99, LR, K, 0, BATCH, EPOCHS)
     launches_before = cd_gibbs.cd_train_cuda.launches
     kernel_ms = timed_ms(lambda: cd_gibbs.cd_train_cuda(*run), 3)
+    check(cd_gibbs.last_launch()["route"] == "cluster", "the timed run's route")
     plain_ms = timed_ms(lambda: cd_gibbs.cd_train_torch(*run), 1)
     check(cd_gibbs.cd_train_cuda.launches == launches_before + 3, "timed launches")
-
+    # The global route and the cluster route at 8 blocks beside it, in turns.
+    routes = {"cluster 16": dict(route="cluster"), "global": dict(route="global"),
+              "cluster 8": dict(route="cluster", cluster=8)}
+    route_ms = {key: [] for key in routes}
+    for key in list(routes) + list(routes)[::-1]:
+        route_ms[key].append(timed_ms(lambda: cd_gibbs.cd_train_cuda(*run, **routes[key]), 1))
     steps = EPOCHS * N // BATCH
+    for key, ms in route_ms.items():
+        log(f"cd_gibbs {key:10s} at {N}x{V_DIM}x{H_DIM}, {EPOCHS} epochs: "
+            f"{' / '.join(f'{t:.3f}' for t in ms)} ms, {min(ms) / steps * 1e3:.2f} us a step")
+    # Where a step's time goes on each route: the probe build (%globaltimer
+    # at each phase's end), 64 steps of the path's data.
+    for key, kw in routes.items():
+        split = cd_gibbs.phase_split(params, V[:64 * BATCH], mask[:64 * BATCH], 99, LR,
+                                     K, 0, BATCH, 1, **kw)
+        launch = split.pop("launch")
+        log(f"phase split, {key} route ({launch['blocks']} blocks, batch tile "
+            f"{launch['batch_tile']}), us a step: " + json.dumps(
+                {k: round(v, 3) for k, v in split.items()}))
+
     flops = (2 * K + 3) * 2 * BATCH * V_DIM * H_DIM * steps
     nbytes = 4 * (N * V_DIM + N + 2 * (V_DIM * H_DIM + V_DIM + H_DIM) + steps)
     peak_f32, _, peak_bw = peaks(name)
     bound_flops_ms, bound_bytes_ms = flops / peak_f32 * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(bound_flops_ms, bound_bytes_ms)
     log(f"cd_gibbs at {N}x{V_DIM}x{H_DIM}, batch {BATCH}, {EPOCHS} epochs: "
-        f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"kernel {kernel_ms:.3f} ms ({kernel_ms / steps * 1e3:.2f} us a step), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved")
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s achieved; global route "
+        f"{min(route_ms['global']):.3f} ms")
     fitted = {n: t.clone() for n, t in rbm.params.items()}
     return {
         "name": "cd_gibbs",
@@ -637,8 +720,10 @@ def rbm_path(dev, name):
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         # The RBM path is not profiled: one launch is the whole fit, and
-        # `ms` is timed at the path's own shape.
+        # `ms` is timed at the path's own shape (the cluster route, which
+        # the path launches); the global route beside it.
         "path_ms": None,
+        "global_route_ms": min(route_ms["global"]),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
@@ -668,7 +753,7 @@ def assert_params(got, want, tol, what):
 
 def dp_against_plain(dev) -> float:
     """Phase 20, kernel #2 against its plain version at W = 1 and W = 4
-    emulated; returns the largest abs difference seen."""
+    emulated, on both routes; returns the largest abs difference seen."""
     worst = 0.0
     # (mode, k, saturated, steps, epochs), at the RBM's shape.
     cases = [(0, k, True, 4, 2) for k in (1, 2)]
@@ -678,40 +763,44 @@ def dp_against_plain(dev) -> float:
                                       saturated, seed=20 + mode)
         for world in (1, DP_WORLD):
             args = (world, params, v_all, mask, 4321, LR, k, mode, BATCH, epochs)
-            p_k, s_k = cd_gibbs_dp.cd_train_dp_emulated(*args)
-            torch.cuda.synchronize()
             p_p, s_p = cd_gibbs_dp.cd_train_dp_emulated(*args, plain=True)
-            torch.cuda.synchronize()
-            what = f"W {world}, mode {mode}, k {k}"
-            assert_params(p_k, p_p, (1e-5, 1e-5), what)
-            s_tol = (1e-5, 1e-5) if saturated else (1e-4, 1e-4)
-            torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1],
-                                       msg=f"scores, {what}")
-            p_diff = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
-            s_diff = float((s_k - s_p).abs().max())
-            worst = max(worst, p_diff, s_diff)
-            log(f"cd_gibbs_dp vs plain: {what} saturated {saturated} steps "
-                f"{steps * epochs}: max abs diff params {p_diff:.3e}, scores "
-                f"{s_diff:.3e}")
+            for route in cd_gibbs.ROUTES:
+                p_k, s_k = cd_gibbs_dp.cd_train_dp_emulated(*args, route=route)
+                torch.cuda.synchronize()
+                check(cd_gibbs_dp.last_launch()["route"] == route, f"DP route {route}")
+                what = f"W {world}, mode {mode}, k {k}, {route} route"
+                assert_params(p_k, p_p, (1e-5, 1e-5), what)
+                s_tol = (1e-5, 1e-5) if saturated else (1e-4, 1e-4)
+                torch.testing.assert_close(s_k, s_p, rtol=s_tol[0], atol=s_tol[1],
+                                           msg=f"scores, {what}")
+                p_diff = max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k)
+                s_diff = float((s_k - s_p).abs().max())
+                worst = max(worst, p_diff, s_diff)
+                log(f"cd_gibbs_dp vs plain: {what} saturated {saturated} steps "
+                    f"{steps * epochs}: max abs diff params {p_diff:.3e}, scores "
+                    f"{s_diff:.3e}")
     return worst
 
 
 def dp_against_kernel_one(dev, V):
     """Phase 20, kernel #2 against kernel #1: W = 1 at the path's shape over
-    its 3 epochs, bit for bit; W = 4 emulated in saturation over 2 epochs and
-    on random parameters over 3 steps."""
+    its 3 epochs, bit for bit, on each route; W = 4 emulated in saturation
+    over 2 epochs and on random parameters over 3 steps."""
     params, _, _ = problem(dev, V_DIM, H_DIM, BATCH, 1, 0, False, seed=30)
     mask = torch.ones(N, device=dev)
     args = (params, V, mask, 2024, LR, K, 0, BATCH, EPOCHS)
-    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args)
-    p_1, s_1 = cd_gibbs.cd_train_cuda(*args)
-    torch.cuda.synchronize()
-    same = all(torch.equal(p_dp[n], p_1[n]) for n in p_1) and torch.equal(s_dp, s_1)
-    diff = max(float((p_dp[n] - p_1[n]).abs().max()) for n in p_1)
-    log(f"cd_gibbs_dp W 1 vs cd_gibbs at {N}x{V_DIM}x{H_DIM}, {EPOCHS} epochs: "
-        f"bit for bit {same} (max abs diff params {diff:.3e}, scores "
-        f"{float((s_dp - s_1).abs().max()):.3e})")
-    check(same, "kernel #2 at world size 1 differs from kernel #1")
+    for route in cd_gibbs.ROUTES:
+        p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args, route=route)
+        p_1, s_1 = cd_gibbs.cd_train_cuda(*args, route=route)
+        torch.cuda.synchronize()
+        check(cd_gibbs.last_launch()["route"] == route
+              and cd_gibbs_dp.last_launch()["route"] == route, f"routes, {route}")
+        same = all(torch.equal(p_dp[n], p_1[n]) for n in p_1) and torch.equal(s_dp, s_1)
+        diff = max(float((p_dp[n] - p_1[n]).abs().max()) for n in p_1)
+        log(f"cd_gibbs_dp W 1 vs cd_gibbs at {N}x{V_DIM}x{H_DIM}, {EPOCHS} epochs, "
+            f"{route} route: bit for bit {same} (max abs diff params {diff:.3e}, scores "
+            f"{float((s_dp - s_1).abs().max()):.3e})")
+        check(same, f"kernel #2 at world size 1 differs from kernel #1 ({route} route)")
     for saturated, steps, epochs in ((True, 4, 2), (False, 3, 1)):
         params, v_all, mask = problem(dev, V_DIM, H_DIM, BATCH, steps, 0,
                                       saturated, seed=31)
@@ -742,6 +831,7 @@ def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
         cd_gibbs.cd_train_cuda.launches = 0
         for f in DP_STEP_KERNELS:
             f.launches = 0
+        cd_gibbs_dp.cd_dp_stats_cuda.by_route = {r: 0 for r in cd_gibbs.ROUTES}
         rbm = RBM({"lr": LR, "batch_size": BATCH, "epochs": EPOCHS}, H_DIM,
                   input_dim=V_DIM, seed=0, device=dev)
         err_before = recon_error(rbm, probe)
@@ -780,10 +870,14 @@ def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
         check(dp_counts() == (steps_all, steps_all),
               f"expected {steps_all} launches of each step kernel, got {dp_counts()}")
         check(cd_gibbs.cd_train_cuda.launches == 0, "the mesh DBN launched kernel #1")
+        by_route = dict(cd_gibbs_dp.cd_dp_stats_cuda.by_route)
+        check(by_route == {"global": 0, "cluster": steps_all},
+              f"the statistics launches by route: {by_route}")
         launches = sum(dp_counts())
         log(f"DBN 784-256-128 with mesh=: transform {tuple(h.shape)}, mean "
             f"activation {float(h.mean()):.4f}; step-kernel launches on the main "
-            f"path: {dp_counts()} (stats, apply), kernel #1: 0")
+            f"path: {dp_counts()} (stats, apply), kernel #1: 0; statistics by route "
+            f"{by_route}, the last {cd_gibbs_dp.last_launch()}")
 
         # 22. Timing: the fit at W = 1 beside RBM.fit's, in turns.
         hps = {"lr": LR, "batch_size": BATCH, "epochs": EPOCHS}
@@ -867,8 +961,11 @@ def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
     kernels()
     plain()
     ms = timed_cold_ms(kernels, 20)
+    check(cd_gibbs_dp.last_launch()["route"] == "cluster", "the timed step's route")
     stats_ms = timed_cold_ms(lambda: DP_STEP_KERNELS[0](
         params, step_v, step_m, 7, 0, K, 0, 0, work=work), 20)
+    global_ms = timed_cold_ms(lambda: step(*DP_STEP_KERNELS, work=work, route="global"), 20)
+    check(cd_gibbs_dp.last_launch()["route"] == "global", "the global step's route")
     plain_ms = timed_ms(plain, 5)
 
     flops = (2 * K + 3) * 2 * BATCH * V_DIM * H_DIM
@@ -880,7 +977,8 @@ def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
     bound_flops_ms, bound_bytes_ms = flops / peak_f32 * 1e3, nbytes / peak_bw * 1e3
     bound_ms = max(bound_flops_ms, bound_bytes_ms)
     log(f"cd_gibbs_dp step at W 1 ({BATCH} rows, {V_DIM}x{H_DIM}): stats + apply "
-        f"{ms:.4f} ms cold (stats alone {stats_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"{ms:.4f} ms cold (stats alone {stats_ms:.4f}; on the global route stats + "
+        f"apply {global_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.6f} ms ({flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB, "
         f"payload {payload} bytes: {2 * (DP_WORLD - 1) / DP_WORLD * payload / NVLINK_BW * 1e3:.6f} ms "
         f"on NVLink at W 4)")
@@ -893,6 +991,7 @@ def dp_path(dev, name, V, fitted, kernel_one_ms) -> dict:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "path_ms": stats_path + apply_path,
+        "global_route_ms": global_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
@@ -2890,18 +2989,28 @@ def main() -> int:
 
     # 2. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
+    # Kernel #1's probe build (phase 5's phase split) beside the six.
     specs = [(cd_gibbs.SOURCE, cd_gibbs.NAME), (cd_gibbs_dp.SOURCE, cd_gibbs_dp.NAME),
              (fa.SOURCE, fa.NAME), (fa.BWD_SOURCE, fa.BWD_NAME), (da.SOURCE, da.NAME),
-             (sa.SOURCE, sa.NAME)]
+             (sa.SOURCE, sa.NAME), (cd_gibbs.SOURCE, cd_gibbs.NAME + "_probe", ("-DCD_PROBE",))]
     built = _build.build_many(specs)
     log(f"build: {', '.join(lib.name for lib, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for (_, lib_name), (_, report) in zip(specs, built):
+    for spec, (_, report) in zip(specs, built):
+        lib_name = spec[1]
         BUILD_REPORTS[lib_name] = report
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {lib_name}: {line.strip()}")
-    log(f"cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
+    for shape in ((BATCH, V_DIM, H_DIM), (BATCH, V_DIM, 256), (BATCH, 256, H_DIM),
+                  (BATCH // DP_WORLD, V_DIM, H_DIM)):
+        plan = cd_gibbs.cluster_plan(*shape)
+        log(f"cluster plan at batch {shape[0]}, {shape[1]}x{shape[2]}: route {plan['route']}, "
+            f"{plan['cluster']} blocks of {plan['nr']} rows and {plan['hc']} columns, batch "
+            f"tile {plan['batch_tile']} ({plan['tiles']} a step), {plan['smem_bytes']} bytes "
+            f"a block (at 8 blocks: batch tile "
+            f"{cd_gibbs.cluster_plan(*shape, 8)['batch_tile']})")
+    log(f"global route's cooperative grid at {V_DIM}x{H_DIM}, batch {BATCH}: "
         f"{cd_gibbs.grid_size(BATCH, V_DIM, H_DIM)} blocks; kernel #2's at "
         f"{BATCH} rows: {cd_gibbs_dp.grid_size(BATCH, V_DIM, H_DIM)}, at "
         f"{BATCH // DP_WORLD}: {cd_gibbs_dp.grid_size(BATCH // DP_WORLD, V_DIM, H_DIM)}")

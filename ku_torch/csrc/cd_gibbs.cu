@@ -20,23 +20,30 @@
 // 67 TFLOP/s non-tensor f32 peak; the data is read once per epoch, far
 // below the memory bound. But the steps form a chain (each needs the
 // parameters the last one wrote) and one step is too small to fill the
-// card, so this kernel is bound by latency: with one 256-thread block per
-// SM, most loads from L2 wait on the one before. On an H100 SXM (700 W) a
-// step takes about 123 us, 1.6 % of the operation bound (PERF.md).
+// card, so the kernel is bound by latency.
 //
-// What the design does about it:
-// - One persistent cooperative launch for the whole run, so no step pays a
-//   launch; cooperative_groups grid.sync() separates the two phases of a step.
-// - W stays in global memory and is served from L2: f32 W at 784x128 is
-//   392 KiB, more than one block's 227 KB of shared memory, and a small part
-//   of the 50 MB L2.
-// - A step's two phases, the row-parallel chain and the sums over rows, and
-//   the in-kernel Philox draws are cd_gibbs_chain.cuh's, shared with the
-//   data-parallel step (cd_gibbs_dp.cu); here the sums go straight into W,
-//   b_h and b_v, W += lr * sum.
+// Two routes, chosen by the shape (ku_torch/kernels/cd_gibbs.py
+// route_for), one launch for the whole run on either:
+// - The cluster route (cd_cluster.cuh), for every shape whose slices fit a
+//   block's shared memory at 16 blocks: one thread-block cluster holds W
+//   split by visible rows in shared memory for the whole run, as ku's
+//   kernel holds it in VMEM, runs each step as batched products over all
+//   the rows on the tensor cores (3xTF32, f32-exact), exchanges partial
+//   activations and hidden units through distributed shared memory between
+//   cluster barriers, and adds the sums into W in shared memory; W, b_h,
+//   b_v go back to global memory at the end. At the RBM's shape a step
+//   takes about 84 us on an H100 (the global route 114 us).
+// - The global route (cd_gibbs_chain.cuh) for a larger W: one persistent
+//   cooperative grid, a block a batch row, W in global memory served from
+//   L2, two grid.sync() a step between the row-parallel chain and the sums
+//   over rows.
+// Both share their step code with the data-parallel statistics kernel
+// (cd_gibbs_dp.cu), whose apply adds the sums in the same expression
+// (sgd), so that a data-parallel run at world size 1 equals this run bit
+// for bit on either route.
 //
-// Every block reaches every grid.sync(), including blocks that own no row:
-// a block that returned early would deadlock the grid.
+// Every block reaches every barrier, including blocks that own no row,
+// column or batch row: a block that returned early would deadlock.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; the entry point has a plain C interface for ctypes.
@@ -46,12 +53,18 @@
 #include <stdint.h>
 
 #include "cd_gibbs_chain.cuh"
+#include "cd_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace cd;
+namespace cc = cd::cluster;
+
+// ---------------------------------------------------------------------------
+// The global route: one cooperative grid, cd_gibbs_chain.cuh's two phases.
+// ---------------------------------------------------------------------------
 
 struct Args {
   Chain c;            // the parameters (updated in place) and the scratch
@@ -74,11 +87,27 @@ struct Update {
   float* scores;
   float lr;
   uint32_t t;
-  __device__ void weight(size_t idx, float d) const { w[idx] += lr * d; }
-  __device__ void visible(int i, float d) const { bv[i] += lr * d; }
-  __device__ void hidden(int j, float d) const { bh[j] += lr * d; }
+  __device__ void weight(size_t idx, float d) const { w[idx] = sgd(w[idx], lr, d); }
+  __device__ void visible(int i, float d) const { bv[i] = sgd(bv[i], lr, d); }
+  __device__ void hidden(int j, float d) const { bh[j] = sgd(bh[j], lr, d); }
   __device__ void score(float d, float c) const { scores[t] = d / fmaxf(c, 1.f); }
 };
+
+#ifdef CD_PROBE
+// The global route's probe: per step and block, the time at the step's
+// start, before and after each grid.sync().
+constexpr int kGlobalMarks = 5;
+#define CD_GLOBAL_MARK(t, mark)                                                \
+  do {                                                                         \
+    if (threadIdx.x == 0 && cc::g_probe && (int)(t) < cc::g_probe_steps)       \
+      cc::g_probe[((size_t)(t) * gridDim.x + blockIdx.x) * kGlobalMarks +      \
+                  (mark)] = cc::globaltimer();                                 \
+  } while (0)
+#else
+#define CD_GLOBAL_MARK(t, mark) \
+  do {                          \
+  } while (0)
+#endif
 
 __global__ void __launch_bounds__(kThreads) cd_gibbs_kernel(Args a) {
   extern __shared__ float smem[];
@@ -89,33 +118,142 @@ __global__ void __launch_bounds__(kThreads) cd_gibbs_kernel(Args a) {
     const int s = t % a.steps;
     const float* vb = a.v + (size_t)s * batch * vdim;
     const float* mb = a.mask + (size_t)s * batch;
+    CD_GLOBAL_MARK(t, 0);
     for (int row = blockIdx.x; row < batch; row += gridDim.x)
       chain_row(a.c, (uint32_t)t, vb, mb, row, smem);
+    CD_GLOBAL_MARK(t, 1);
     grid.sync();
+    CD_GLOBAL_MARK(t, 2);
     step_sums(a.c, vb, mb, Update{a.w, a.bh, a.bv, a.scores, a.lr, (uint32_t)t});
+    CD_GLOBAL_MARK(t, 3);
     grid.sync();
+    CD_GLOBAL_MARK(t, 4);
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster route: one cluster for the whole run, cd_cluster.cuh's step.
+// ---------------------------------------------------------------------------
+
+struct ClusterArgs {
+  const float* v;     // (steps * batch, V)
+  const float* mask;  // (steps * batch,)
+  float* w;           // (V, H), read at the start, written at the end
+  float* bh;
+  float* bv;
+  float* scores;      // (epochs * steps,)
+  int steps, epochs, k, mode;
+  float lr;
+  uint32_t seed;
+};
+
+// The step's sums added into the parameters held in shared memory, with the
+// expression kernel #2's apply uses (sgd), and the step's score; the sums
+// are zeroed for the next step.
+struct ClusterUpdate {
+  float* scores;
+  __device__ void operator()(const cc::Ctx& c, uint32_t t) const {
+    const cc::Plan& p = c.p;
+    float* S = cc::cd_smem;
+    const int H = p.hdim;
+    __syncthreads();
+    for (int i = threadIdx.x >> 5; i < c.nrr; i += cc::kCW) {
+      for (int j = threadIdx.x & 31; j < H; j += 32) {
+        float* w = S + p.o_w + i * p.ldw + j;
+        float* d = S + p.o_dw + i * p.ldp + j;
+        *w = sgd(*w, c.lr, *d);
+        *d = 0.f;
+      }
+    }
+    for (int jj = threadIdx.x; jj < c.hcr; jj += cc::kCT)
+      S[p.o_bh + jj] = sgd(S[p.o_bh + jj], c.lr, S[p.o_dw + p.nr * p.ldp + c.j0 + jj]);
+    for (int i = threadIdx.x; i < c.nrr; i += cc::kCT) {
+      S[p.o_bv + i] = sgd(S[p.o_bv + i], c.lr, S[p.o_bvs + i]);
+      S[p.o_bvs + i] = 0.f;
+    }
+    if (c.r == 0 && threadIdx.x == 0) {
+      scores[t] = S[p.o_red] / fmaxf(S[p.o_red + 1], 1.f);
+      S[p.o_red] = S[p.o_red + 1] = 0.f;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < H; j += cc::kCT) S[p.o_dw + p.nr * p.ldp + j] = 0.f;
+    __syncthreads();
+  }
+};
+
+__global__ void __launch_bounds__(cc::kCT, 1)
+    cd_gibbs_cluster_kernel(ClusterArgs a, cc::Plan p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const cc::Ctx c = cc::make_ctx(p, (int)cluster.block_rank(), a.k, a.mode,
+                                 a.seed, 0u, a.lr);
+  cc::load_params(c, a.w, a.bh, a.bv);
+  cc::copy_rows(c, a.v, 0);
+  const int total = a.steps * a.epochs;
+  const size_t step_floats = (size_t)p.batch * p.vdim;
+  for (int t = 0; t < total; ++t) {
+    const int s = t % a.steps;
+    const float* next =
+        t + 1 < total ? a.v + (size_t)((t + 1) % a.steps) * step_floats : nullptr;
+    cc::cluster_step(c, (uint32_t)t, a.v + (size_t)s * step_floats,
+                     a.mask + (size_t)s * p.batch, next, ClusterUpdate{a.scores});
+  }
+  float* S = cc::cd_smem;
+  for (int i = threadIdx.x >> 5; i < c.nrr; i += cc::kCW)
+    for (int j = threadIdx.x & 31; j < p.hdim; j += 32)
+      a.w[(size_t)(c.i0 + i) * p.hdim + j] = S[p.o_w + i * p.ldw + j];
+  for (int i = threadIdx.x; i < c.nrr; i += cc::kCT) a.bv[c.i0 + i] = S[p.o_bv + i];
+  for (int jj = threadIdx.x; jj < c.hcr; jj += cc::kCT) a.bh[c.j0 + jj] = S[p.o_bh + jj];
+  cluster.sync();  // no block leaves while another may read its shared memory
+}
+
+// What the last cd_gibbs_train launched: route (0 global, 1 cluster),
+// blocks, cluster size, batch tile, tiles, shared-memory bytes a block.
+int g_last[6] = {-1, 0, 0, 0, 0, 0};
+
 }  // namespace
+
 
 extern "C" {
 
-// Blocks of the cooperative grid for this shape on `device`, or a negative
-// CUDA error code. The grid is no larger than the co-resident block count.
+// Blocks of the global route's cooperative grid for this shape on
+// `device`, or a negative CUDA error code. The grid is no larger than the
+// co-resident block count.
 int cd_gibbs_grid(int batch, int vdim, int hdim, int device) {
   return cooperative_grid(cd_gibbs_kernel, batch, vdim, hdim, device);
 }
 
-// The whole run in one cooperative launch on `stream`. Returns the CUDA
-// error of the launch (0 on success); does not synchronise.
+// The cluster route's plan at cluster size C: out = {C, nr, hc, batch
+// tile, tiles, shared-memory bytes}; bytes 0 when no tile fits.
+void cd_gibbs_plan(int batch, int vdim, int hdim, int C, int* out) {
+  const cc::Plan p = cc::make_plan(batch, vdim, hdim, C);
+  const int v[6] = {p.C, p.nr, p.hc, p.bt, p.tiles,
+                    p.bt ? p.floats * (int)sizeof(float) : 0};
+  for (int q = 0; q < 6; ++q) out[q] = v[q];
+}
+
+// The whole run in one launch on `stream`: route 1 the cluster route (one
+// cluster of `cluster` blocks, 0 = 16 where the card allows it, else 8),
+// route 0 the global route (a cooperative grid). Returns the CUDA error of
+// the launch (0 on success); does not synchronise.
 int cd_gibbs_train(const float* v, const float* mask, float* w, float* bh,
                    float* bv, float* scores, float* hpos, float* vneg,
                    float* hneg, float* diff, int steps, int epochs, int batch,
                    int vdim, int hdim, int k, int mode, float lr,
-                   unsigned int seed, int device, void* stream) {
+                   unsigned int seed, int route, int cluster, int device,
+                   void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if (route == 1) {
+    cc::Plan p;
+    const int err = cc::choose(cd_gibbs_cluster_kernel, batch, vdim, hdim, cluster, &p);
+    if (err != 0) return err;
+    ClusterArgs a{v, mask, w, bh, bv, scores, steps, epochs, k, mode, lr, seed};
+    e = cc::launch(cd_gibbs_cluster_kernel, p, (cudaStream_t)stream, a, p);
+    if (e != cudaSuccess) return (int)e;
+    const int last[6] = {1, p.C, p.C, p.bt, p.tiles, p.floats * (int)sizeof(float)};
+    for (int q = 0; q < 6; ++q) g_last[q] = last[q];
+    return (int)cudaGetLastError();
+  }
   const int grid = cd_gibbs_grid(batch, vdim, hdim, device);
   if (grid < 0) return -grid;
   const Chain c{w,    bh,   bv,   hpos, vneg, hneg, diff, batch,
@@ -127,8 +265,29 @@ int cd_gibbs_train(const float* v, const float* mask, float* w, float* bh,
                                   shared_bytes(vdim, hdim),
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
+  const int last[6] = {0, grid, 0, 0, 0, (int)shared_bytes(vdim, hdim)};
+  for (int q = 0; q < 6; ++q) g_last[q] = last[q];
   return (int)cudaGetLastError();
 }
+
+// What the last cd_gibbs_train launched: out = {route (0 global, 1
+// cluster), blocks, cluster size (0 on the global route), batch tile,
+// tiles, shared-memory bytes a block}.
+void cd_gibbs_last_launch(int* out) {
+  for (int q = 0; q < 6; ++q) out[q] = g_last[q];
+}
+
+#ifdef CD_PROBE
+// Probe builds only: every launch after this records timestamps
+// (%globaltimer) into `stamps` for its first `steps` steps: the cluster
+// route (steps, tiles, C, cc::kMarks), the global route (steps, blocks,
+// 5). A null `stamps` stops it.
+int cd_gibbs_probe(void* stamps, int steps) {
+  cudaError_t e = cudaMemcpyToSymbol(cc::g_probe, &stamps, sizeof(stamps));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyToSymbol(cc::g_probe_steps, &steps, sizeof(steps));
+}
+#endif
 
 const char* cd_gibbs_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -66,14 +66,26 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-__device__ __forceinline__ float uniform(const Chain& a, uint32_t t,
-                                         uint32_t stream, uint32_t row,
-                                         uint32_t col) {
-  const uint4 r = philox4x32_10(make_uint4(col >> 2, a.row0 + row, stream, 0u),
-                                a.seed, t);
+__device__ __forceinline__ float uniform_at(uint32_t seed, uint32_t row0,
+                                            uint32_t t, uint32_t stream,
+                                            uint32_t row, uint32_t col) {
+  const uint4 r = philox4x32_10(make_uint4(col >> 2, row0 + row, stream, 0u),
+                                seed, t);
   const uint32_t q = col & 3u;
   const uint32_t bits = q == 0 ? r.x : q == 1 ? r.y : q == 2 ? r.z : r.w;
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float uniform(const Chain& a, uint32_t t,
+                                         uint32_t stream, uint32_t row,
+                                         uint32_t col) {
+  return uniform_at(a.seed, a.row0, t, stream, row, col);
+}
+
+// p + lr * d: the update both kernels apply to a parameter, so that the
+// single-device run and a data-parallel run of one rank give the same bits.
+__device__ __forceinline__ float sgd(float p, float lr, float d) {
+  return fmaf(lr, d, p);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

@@ -13,10 +13,10 @@
 // torch.distributed's all_reduce between two launches (NCCL on the card),
 // which gives every rank the same sum, so there is no ring, no credit and
 // no barrier in the kernels. A step is:
-//   (a) cd_dp_stats: one cooperative launch. The chain over the rank's rows
-//       (the Philox counter at the global row, so the draws are the ones a
-//       single-device run makes for the same rows), grid.sync(), then the
-//       sums over those rows written to one contiguous f32 buffer of
+//   (a) cd_dp_stats: one launch, the CD step over the rank's rows (the
+//       Philox counter at the global row, so the draws are the ones a
+//       single-device run makes for the same rows), its sums over those
+//       rows written to one contiguous f32 buffer of
 //       V*H + H + V + 2 floats: the W sums (V x H, W's layout), the b_h
 //       sums, the b_v sums, sum |dF| and sum mask. Nothing is added to W.
 //   (b) all_reduce(buffer, SUM) over the mesh's group, on the current stream.
@@ -24,29 +24,32 @@
 //       scores[t] = buffer[sum |dF|] / max(buffer[sum mask], 1).
 // Two launches and one all-reduce a step; no host synchronisation.
 //
-// Both phases of (a) are cd_gibbs_chain.cuh's, the code kernel #1 runs, and
-// (c) adds lr * sum in the expression kernel #1 uses, so a run at world size
-// 1 equals kernel #1's run bit for bit (an all-reduce over one rank leaves
-// the buffer as it is). At world size W > 1 the sums over rows are taken per
-// rank and then over ranks, in another order: W moves by ulps.
+// (a) runs kernel #1's step code on kernel #1's two routes, chosen by the
+// shape: on the cluster route (cd_cluster.cuh) one thread-block cluster
+// loads W's slices into its shared memory at every launch and runs one
+// step; on the global route (cd_gibbs_chain.cuh) a cooperative grid runs
+// the row chain, grid.sync(), then the sums over rows. (c) adds lr * sum in
+// the expression kernel #1 uses (sgd), so a run at world size 1 equals
+// kernel #1's run bit for bit on either route (an all-reduce over one rank
+// leaves the buffer as it is). At world size W > 1 the sums over rows are
+// taken per rank and then over ranks, in another order: W moves by ulps.
 //
 // What bounds a rank's step on an H100: kernel #1's (2k+3)·2·(B/W)·V·H f32
 // operations (128.5 MFLOP at k = 1, B 128, V 784, H 128, W 1: 1.9 us at the
 // 67 TFLOP/s non-tensor f32 peak), plus the all-reduce's
 // 2(W-1)/W x 405,064 bytes of payload (V 784, H 128) on NVLink at 450 GB/s
 // each way (0 at W 1; 1.35 us at W 4). As for kernel #1, latency bounds it
-// in practice: a step is a chain of dependent passes over W in L2, too
-// small to fill the card, and here each step also pays two launches and the
-// all-reduce's own launch.
+// in practice, and each step also pays two launches and the all-reduce's
+// host time.
 //
-// What the design does about it: the chain keeps kernel #1's design (one
-// block a row, W read from L2, the rows' scratch in global memory, sums in
-// row order by one warp per 8 x 32 tile of W), so the step costs about what
-// kernel #1's step costs plus the launches; the grid is computed once a run
-// on the host; the payload is one contiguous buffer, so a step is one
+// What the design does about it: the step is kernel #1's (the statistics
+// launch takes about 86 us of device time on the cluster route, 136 us on
+// the global route, on an H100); the grid or cluster size is computed once a
+// run on the host; the payload is one contiguous buffer, so a step is one
 // all-reduce; the step is queued on the current stream and the host never
-// waits inside the loop. Fusing (c) into the next step's (a) would save a
-// launch a step and is left to a later change.
+// waits inside the loop. Fusing (c) into the next step's (a), or a CUDA
+// graph over the steps, would save host time a step and is left to a later
+// change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; the entry points have a plain C interface for
@@ -57,12 +60,14 @@
 #include <stdint.h>
 
 #include "cd_gibbs_chain.cuh"
+#include "cd_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace cd;
+namespace cc = cd::cluster;
 
 constexpr int kApplyThreads = 256;
 
@@ -97,6 +102,47 @@ __global__ void __launch_bounds__(kThreads)
   step_sums(c, vb, mb, Pack{buf, c.vdim, c.hdim});
 }
 
+// (a) on the cluster route: W's slices loaded into the cluster, then
+// cd_cluster.cuh's step, its sums written to the buffer in Pack's layout.
+struct ClusterPack {
+  float* buf;
+  __device__ void operator()(const cc::Ctx& c, uint32_t) const {
+    const cc::Plan& p = c.p;
+    const float* S = cc::cd_smem;
+    const int H = p.hdim;
+    const size_t vh = (size_t)p.vdim * H;
+    __syncthreads();
+    for (int i = threadIdx.x >> 5; i < c.nrr; i += cc::kCW)
+      for (int j = threadIdx.x & 31; j < H; j += 32)
+        buf[(size_t)(c.i0 + i) * H + j] = S[p.o_dw + i * p.ldp + j];
+    for (int jj = threadIdx.x; jj < c.hcr; jj += cc::kCT)
+      buf[vh + c.j0 + jj] = S[p.o_dw + p.nr * p.ldp + c.j0 + jj];
+    for (int i = threadIdx.x; i < c.nrr; i += cc::kCT)
+      buf[vh + H + c.i0 + i] = S[p.o_bvs + i];
+    if (c.r == 0 && threadIdx.x == 0) {
+      buf[vh + H + p.vdim] = S[p.o_red];
+      buf[vh + H + p.vdim + 1] = S[p.o_red + 1];
+    }
+  }
+};
+
+__global__ void __launch_bounds__(cc::kCT, 1)
+    cd_dp_stats_cluster_kernel(cc::Plan p, const float* w, const float* bh,
+                         const float* bv, const float* v, const float* mask,
+                         float* buf, int k, int mode, uint32_t seed, uint32_t t,
+                         uint32_t row0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const cc::Ctx c = cc::make_ctx(p, (int)cluster.block_rank(), k, mode, seed,
+                                 row0, 0.f);
+  cc::load_params(c, w, bh, bv);
+  cc::copy_rows(c, v, 0);
+  cc::cluster_step(c, t, v, mask, nullptr, ClusterPack{buf});
+  cluster.sync();  // no block leaves while another may read its shared memory
+}
+
+// What the last cd_dp_stats launched: as cd_gibbs_last_launch.
+int g_last[6] = {-1, 0, 0, 0, 0, 0};
+
 // (c): the summed buffer added into the parameters, and the step's score.
 __global__ void __launch_bounds__(kApplyThreads)
     cd_dp_apply_kernel(float* w, float* bh, float* bv, const float* buf,
@@ -106,7 +152,7 @@ __global__ void __launch_bounds__(kApplyThreads)
        idx += (size_t)gridDim.x * blockDim.x) {
     float* p = idx < vh ? w + idx : idx < vh + hdim ? bh + (idx - vh)
                                                     : bv + (idx - vh - hdim);
-    *p += lr * buf[idx];
+    *p = sgd(*p, lr, buf[idx]);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) scores[t] = buf[n] / fmaxf(buf[n + 1], 1.f);
 }
@@ -122,25 +168,64 @@ int cd_dp_grid(int batch, int vdim, int hdim, int device) {
   return cooperative_grid(cd_dp_stats_kernel, batch, vdim, hdim, device);
 }
 
-// (a) for step `step` of a run, on `stream`, with `grid` from cd_dp_grid.
-// Returns the CUDA error of the launch (0 on success); does not synchronise.
+// The cluster route's cluster size for this shape (`cluster` if non-zero,
+// else 16 where the card allows it and 8 otherwise), its plan in out =
+// {C, nr, hc, batch tile, tiles, shared-memory bytes}; sets (a)'s
+// attributes, so call it once before the first cluster launch at a shape.
+// Returns 0 or a CUDA error code.
+int cd_dp_cluster(int batch, int vdim, int hdim, int cluster, int device,
+                  int* out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cc::Plan p;
+  const int err = cc::choose(cd_dp_stats_cluster_kernel, batch, vdim, hdim, cluster, &p);
+  if (err != 0) return err;
+  const int v[6] = {p.C, p.nr, p.hc, p.bt, p.tiles, p.floats * (int)sizeof(float)};
+  for (int q = 0; q < 6; ++q) out[q] = v[q];
+  return 0;
+}
+
+// (a) for step `step` of a run, on `stream`: route 1 the cluster route on
+// `blocks` = C blocks from cd_dp_cluster, route 0 the global route on a
+// cooperative grid of `blocks` from cd_dp_grid. Returns the CUDA error of
+// the launch (0 on success); does not synchronise.
 int cd_dp_stats(const float* v, const float* mask, const float* w,
                 const float* bh, const float* bv, float* buf, float* hpos,
                 float* vneg, float* hneg, float* diff, int batch, int vdim,
                 int hdim, int k, int mode, unsigned int seed, int step,
-                unsigned int row0, int grid, int device, void* stream) {
+                unsigned int row0, int route, int blocks, int device,
+                void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  uint32_t t = (uint32_t)step;
+  if (route == 1) {
+    const cc::Plan p = cc::make_plan(batch, vdim, hdim, blocks);
+    if (p.bt == 0) return (int)cudaErrorInvalidConfiguration;
+    e = cc::launch(cd_dp_stats_cluster_kernel, p, (cudaStream_t)stream, p, w, bh, bv,
+                   v, mask, buf, k, mode, (uint32_t)seed, t, (uint32_t)row0);
+    if (e != cudaSuccess) return (int)e;
+    const int last[6] = {1, p.C, p.C, p.bt, p.tiles, p.floats * (int)sizeof(float)};
+    for (int q = 0; q < 6; ++q) g_last[q] = last[q];
+    return (int)cudaGetLastError();
+  }
   Chain c{w,    bh,   bv,   hpos, vneg, hneg, diff, batch,
           vdim, hdim, k,    mode, seed, row0};
-  uint32_t t = (uint32_t)step;
   void* params[] = {&c, &v, &mask, &buf, &t};
-  e = cudaLaunchCooperativeKernel((const void*)cd_dp_stats_kernel, dim3(grid),
+  e = cudaLaunchCooperativeKernel((const void*)cd_dp_stats_kernel, dim3(blocks),
                                   dim3(kThreads), params,
                                   shared_bytes(vdim, hdim),
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
+  const int last[6] = {0, blocks, 0, 0, 0, (int)shared_bytes(vdim, hdim)};
+  for (int q = 0; q < 6; ++q) g_last[q] = last[q];
   return (int)cudaGetLastError();
+}
+
+// What the last cd_dp_stats launched: out = {route (0 global, 1 cluster),
+// blocks, cluster size (0 on the global route), batch tile, tiles,
+// shared-memory bytes a block}.
+void cd_dp_last_launch(int* out) {
+  for (int q = 0; q < 6; ++q) out[q] = g_last[q];
 }
 
 // (c) for step `step`, on `stream`. Returns the CUDA error of the launch.

@@ -31,35 +31,39 @@ def nvcc() -> str:
     return path
 
 
-def library_path(source: Path, name: str) -> Path:
-    """The library's path, named by the hash of the source and of the
-    headers it includes from its own directory (``#include "x.cuh"``)."""
+def library_path(source: Path, name: str, flags: Tuple[str, ...] = ()) -> Path:
+    """The library's path, named by the hash of the source, of the headers
+    it includes from its own directory (``#include "x.cuh"``) and of any
+    extra compiler flags."""
     source = Path(source)
     text = source.read_bytes()
     h = hashlib.sha256(text)
     for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
         h.update((source.parent / header.decode()).read_bytes())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
-    """Compile every ``(source, name)`` not built yet, one ``nvcc`` process
-    per source, all started together.
+def build_many(specs: Iterable[tuple]) -> List[Tuple[Path, str]]:
+    """Compile every ``(source, name)`` or ``(source, name, flags)`` not
+    built yet, one ``nvcc`` process per spec, all started together (flags:
+    extra compiler arguments, such as ``("-DCD_PROBE",)``).
 
     Returns one (library path, compiler output) per spec, in order: the
     output of the build that made the library, kept beside it as
     ``<library>.log`` (empty when that file is gone). Raises naming the
     first source that failed."""
-    specs = [(Path(src), name) for src, name in specs]
+    specs = [(Path(spec[0]), spec[1], tuple(spec[2]) if len(spec) > 2 else ())
+             for spec in specs]
     jobs = []
-    for src, name in specs:
-        lib = library_path(src, name)
+    for src, name, flags in specs:
+        lib = library_path(src, name, flags)
         if lib.exists():
             jobs.append((src, lib, None, None))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
         jobs.append((src, lib, tmp, proc))
@@ -81,8 +85,8 @@ def build_many(specs: Iterable[Tuple[Path, str]]) -> List[Tuple[Path, str]]:
     return results
 
 
-def build(source: Path, name: str) -> Tuple[Path, str]:
+def build(source: Path, name: str, flags: Tuple[str, ...] = ()) -> Tuple[Path, str]:
     """Compile one source if it has not been built yet.
 
     Returns (library path, compiler output), as :func:`build_many`."""
-    return build_many([(source, name)])[0]
+    return build_many([(source, name, flags)])[0]

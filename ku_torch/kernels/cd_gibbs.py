@@ -2,13 +2,23 @@
 
 Port of ``ku/pallas/cd_gibbs.py`` (single-device part). The kernel,
 ``ku_torch/csrc/cd_gibbs.cu``, replaces ``ku/pallas/cd_gibbs.py::_make_kernel``:
-one cooperative launch runs every (epoch, step) of a CD-k run, the
-parameters carrying from step to step. Its source note says what bounds it
-on an H100 and what the design does about that: in short, the f32
-operations bound it in principle (2.7 ms for 3 epochs of 60,032 × 784 ×
-128 at k = 1), but the chain of small steps leaves it latency-bound in
-practice (about 123 µs a step), so one persistent launch holds W in L2 and
-splits each step into a row-parallel chain phase and an update phase.
+one launch runs every (epoch, step) of a CD-k run, the parameters carrying
+from step to step. It has two routes, chosen by the shape alone
+(:func:`route_for`), never by trying one and falling back:
+
+- the **cluster route** (``ku_torch/csrc/cd_cluster.cuh``), for every shape
+  whose slices fit a block's 227 KB of shared memory at 16 blocks
+  (:func:`cluster_plan`): one thread-block cluster holds W, split by visible
+  rows, in its shared memory for the whole run, as ku's kernel holds it in
+  VMEM, and runs each step as batched f32 products over all the batch rows,
+  with cluster barriers and distributed shared memory between them;
+- the **global route** (``ku_torch/csrc/cd_gibbs_chain.cuh``) for a larger
+  W: one cooperative grid, a block a batch row, W read from L2, two
+  ``grid.sync()`` a step.
+
+The C entry reports what it launched; :func:`last_launch` reads it. Both
+source notes say what bounds the kernel on an H100 and what the design
+does about that.
 
 - :func:`cd_train_cuda` launches the kernel. It takes CUDA tensors only.
 - :func:`cd_train_torch` is the plain version: the same function as a Python
@@ -56,18 +66,122 @@ def build() -> tuple[Path, str]:
     return _build.build(SOURCE, NAME)
 
 
+ROUTES = ("global", "cluster")  # the C entries' route codes 0 and 1
+SMEM_BUDGET = 232_448  # bytes of shared memory a block may use (227 KB)
+MAX_CLUSTER = 16
+
+
+def _split(n: int, parts: int) -> list:
+    """(start, count) of each of ``parts`` contiguous slices of ``n``: the
+    first ``n % parts`` take one more (cd_cluster.cuh split_start/count)."""
+    base, extra = divmod(n, parts)
+    return [(r * base + min(r, extra), base + (r < extra)) for r in range(parts)]
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _plan_floats(batch_tile, nr, hc, h_dim, cluster) -> int:
+    """Shared-memory floats a block of the cluster route uses
+    (cd_cluster.cuh lay_out: each buffer rounded up to 16 bytes)."""
+    kp, hp, bt8 = _up(nr, 8), _up(h_dim, 8), _up(batch_tile, 8)
+    ldw = ldx = hp + 4
+    ldv, ldp = _up(max(kp, nr + 1), 8) + 4, _up(h_dim, 32) + 8
+    sizes = (max(kp, nr + 1) * ldw, bt8 * ldv, bt8 * ldv,
+             max(bt8 * ldx, batch_tile * ldp), (nr + 1) * ldp, nr, nr, hc,
+             4 * batch_tile, 2 * cluster * batch_tile, batch_tile,
+             batch_tile * hc, 4)
+    return sum(_up(n, 4) for n in sizes)
+
+
+def cluster_plan(batch: int, v_dim: int, h_dim: int,
+                 cluster: int = MAX_CLUSTER) -> dict:
+    """The cluster route's plan at ``cluster`` blocks, as the C entries
+    compute it (cd_cluster.cuh make_plan): each block's visible rows and
+    hidden columns (contiguous, in rank order), the largest batch tile whose
+    buffers fit :data:`SMEM_BUDGET`, the tiles a step and the bytes a block.
+    ``route`` is "cluster" when a tile fits, else "global"."""
+    nr, hc = -(-v_dim // cluster), -(-h_dim // cluster)
+    plan = {"cluster": cluster, "rows": _split(v_dim, cluster),
+            "cols": _split(h_dim, cluster), "nr": nr, "hc": hc,
+            "route": "global", "batch_tile": 0, "tiles": 0, "smem_bytes": 0}
+    for tiles in range(1, batch + 1):
+        bt = -(-batch // tiles)
+        nbytes = 4 * _plan_floats(bt, nr, hc, h_dim, cluster)
+        if nbytes <= SMEM_BUDGET:
+            plan.update(route="cluster", batch_tile=bt, tiles=-(-batch // bt),
+                        smem_bytes=nbytes)
+            break
+    return plan
+
+
+def route_for(batch: int, v_dim: int, h_dim: int) -> str:
+    """The route a run at this shape takes: "cluster" where the cluster
+    route's plan fits at 16 blocks, else "global"."""
+    return cluster_plan(batch, v_dim, h_dim)["route"]
+
+
+def _route_code(route, batch, v_dim, h_dim) -> int:
+    route = route_for(batch, v_dim, h_dim) if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    return ROUTES.index(route)
+
+
+def _cluster_code(cluster) -> int:
+    if cluster not in (None, 8, MAX_CLUSTER):
+        raise ValueError(f"cluster {cluster!r} is not None, 8 or {MAX_CLUSTER}")
+    return cluster or 0
+
+
+def launch_report(words) -> dict:
+    """A C entry's report of its last launch, as a dict."""
+    route, blocks, cluster, bt, tiles, smem = (int(x) for x in words)
+    return {"route": ROUTES[route] if route >= 0 else None, "blocks": blocks,
+            "cluster": cluster, "batch_tile": bt, "tiles": tiles,
+            "smem_bytes": smem}
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def _library(probe: bool = False) -> ctypes.CDLL:
+    flags = ("-DCD_PROBE",) if probe else ()
+    lib = ctypes.CDLL(str(_build.build(SOURCE, NAME + ("_probe" if probe else ""),
+                                       flags)[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cd_gibbs_train.argtypes = [p] * 10 + [i] * 7 + [
-        ctypes.c_float, ctypes.c_uint32, i, p]
+        ctypes.c_float, ctypes.c_uint32, i, i, i, p]
     lib.cd_gibbs_train.restype = i
     lib.cd_gibbs_grid.argtypes = [i, i, i, i]
     lib.cd_gibbs_grid.restype = i
+    lib.cd_gibbs_plan.argtypes = [i, i, i, i, p]
+    lib.cd_gibbs_plan.restype = None
+    lib.cd_gibbs_last_launch.argtypes = [p]
+    lib.cd_gibbs_last_launch.restype = None
     lib.cd_gibbs_error_string.argtypes = [i]
     lib.cd_gibbs_error_string.restype = ctypes.c_char_p
+    if probe:
+        lib.cd_gibbs_probe.argtypes = [p, i]
+        lib.cd_gibbs_probe.restype = i
     return lib
+
+
+def last_launch() -> dict:
+    """What the last :func:`cd_train_cuda` launched, as its C entry reports
+    it: route ("cluster" or "global"), blocks, cluster size (0 on the
+    global route), batch tile, tiles a step and shared-memory bytes a
+    block."""
+    words = (ctypes.c_int * 6)()
+    _library().cd_gibbs_last_launch(words)
+    return launch_report(words)
+
+
+def c_plan(batch: int, v_dim: int, h_dim: int, cluster: int) -> dict:
+    """The C entry's own cluster plan (a check on :func:`cluster_plan`)."""
+    words = (ctypes.c_int * 6)()
+    _library().cd_gibbs_plan(batch, v_dim, h_dim, cluster, words)
+    keys = ("cluster", "nr", "hc", "batch_tile", "tiles", "smem_bytes")
+    return dict(zip(keys, (int(x) for x in words)))
 
 
 def _check(params, v_all, mask, k, mode, batch_size, epochs):
@@ -88,13 +202,12 @@ def _check(params, v_all, mask, k, mode, batch_size, epochs):
     return (w, bh, bv, v_all, mask)
 
 
-def cd_train_cuda(params, v_all, mask, seed, lr, k, mode, batch_size, epochs):
-    """The whole CD-k run as one launch of the CUDA kernel.
-
-    Takes float32 contiguous CUDA tensors, launches on the current stream and
-    does not synchronise. Raises on anything else, and if the launch is
-    refused. Adds one to ``cd_train_cuda.launches`` per launch.
-    """
+def _launch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs, route,
+            cluster, probe=False):
+    """The run on the card through the C entry of the kernel's library (its
+    probe build if ``probe``): (params, scores, route code). Checks every
+    tensor before building or loading anything; raises if the launch is
+    refused."""
     tensors = _check(params, v_all, mask, k, mode, batch_size, epochs)
     device = v_all.device
     for t in tensors:
@@ -108,36 +221,130 @@ def cd_train_cuda(params, v_all, mask, seed, lr, k, mode, batch_size, epochs):
     w, bh, bv = (t.clone() for t in tensors[:3])
     steps = v_all.shape[0] // batch_size
     v_dim, h_dim = w.shape
+    code = _route_code(route, int(batch_size), v_dim, h_dim)
     scores = torch.empty(steps * epochs, dtype=torch.float32, device=device)
-    h_pos = torch.empty(batch_size, h_dim, dtype=torch.float32, device=device)
-    v_neg = torch.empty(batch_size, v_dim, dtype=torch.float32, device=device)
-    h_neg = torch.empty(batch_size, h_dim, dtype=torch.float32, device=device)
-    diff = torch.empty(batch_size, dtype=torch.float32, device=device)
-    lib = _library()
+    # The global route's scratch; the cluster route keeps its own on chip.
+    rows = batch_size if code == 0 else 1
+    h_pos = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
+    v_neg = torch.empty(rows, v_dim, dtype=torch.float32, device=device)
+    h_neg = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
+    diff = torch.empty(rows, dtype=torch.float32, device=device)
+    lib = _library(probe)
     err = lib.cd_gibbs_train(
         v_all.data_ptr(), mask.data_ptr(), w.data_ptr(), bh.data_ptr(),
         bv.data_ptr(), scores.data_ptr(), h_pos.data_ptr(), v_neg.data_ptr(),
         h_neg.data_ptr(), diff.data_ptr(), steps, int(epochs), int(batch_size),
-        v_dim, h_dim, int(k), int(mode), float(lr), int(seed),
+        v_dim, h_dim, int(k), int(mode), float(lr), int(seed), code,
+        _cluster_code(cluster),
         device.index if device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError("cd_gibbs launch failed: "
+        raise RuntimeError(f"cd_gibbs launch failed ({ROUTES[code]} route): "
                            f"{lib.cd_gibbs_error_string(err).decode()} ({err})")
+    return {"rbm_weight": w, "hidden_bias": bh, "visible_bias": bv}, scores, code
+
+
+def cd_train_cuda(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
+                  route=None, cluster=None):
+    """The whole CD-k run as one launch of the CUDA kernel.
+
+    ``route`` None takes :func:`route_for` the shape; "cluster" or "global"
+    forces one (a cluster launch at a shape whose plan does not fit
+    raises). ``cluster`` None lets the C entry take 16 blocks where the
+    card can co-schedule them, else 8; 8 or 16 forces it. Takes float32
+    contiguous CUDA tensors, launches on the current stream and does not
+    synchronise. Raises on anything else, and if the launch is refused
+    (with the CUDA error; it never runs the other route instead). Adds one
+    to ``cd_train_cuda.launches`` and to ``cd_train_cuda.by_route[route]``
+    per launch.
+    """
+    params, scores, code = _launch(params, v_all, mask, seed, lr, k, mode,
+                                   batch_size, epochs, route, cluster)
     cd_train_cuda.launches += 1
-    return {"rbm_weight": w, "hidden_bias": bh, "visible_bias": bv}, scores
+    cd_train_cuda.by_route[ROUTES[code]] += 1
+    return params, scores
 
 
 cd_train_cuda.launches = 0
+cd_train_cuda.by_route = {r: 0 for r in ROUTES}
 
 
 def grid_size(batch_size, v_dim, h_dim, device=0) -> int:
-    """Blocks of the kernel's cooperative grid at this shape."""
+    """Blocks of the global route's cooperative grid at this shape."""
     grid = _library().cd_gibbs_grid(batch_size, v_dim, h_dim, device)
     if grid < 0:
         raise RuntimeError(_library().cd_gibbs_error_string(-grid).decode())
     return grid
+
+
+# Probe marks of the cluster route (cd_cluster.cuh CD_MARK): the interval
+# ending at mark i + 1 is CLUSTER_PHASES[i]; the last is the step's
+# parameter update (or the statistics' write-out).
+CLUSTER_PHASES = ("(1) product", "barrier 1", "(b) owner: sums, barrier, h_pos",
+                  "(b) F(v_pos) terms",
+                  "barrier 2", "(2) product", "(2) v_neg draw", "(2) F(v_neg) terms",
+                  "(e) mask", "(e) product", "(e) b_v sums, next copy",
+                  "(3) product", "barrier 3", "(g) owner: sums, barrier, h_neg",
+                  "barrier 4",
+                  "(i) product", "(i) b_v sums", "(i) score", "update")
+GLOBAL_PHASES = ("phase (a)", "grid.sync 1", "phase (b)", "grid.sync 2")
+_MARKS = len(CLUSTER_PHASES) + 1
+
+
+def phase_split(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
+                route, cluster=None, skip=8):
+    """Microseconds a step in each phase of a run on ``route``, from a probe
+    build of the kernel (``-DCD_PROBE``: thread 0 of every block stamps
+    %globaltimer at each phase's end; not the library the path runs).
+
+    Returns {phase: mean us a step}, the mean over the steps after the
+    first ``skip`` and over the blocks (each block's own intervals, waits
+    at barriers included), plus "step" (the mean time between step starts)
+    and the launch report."""
+    steps = v_all.shape[0] // batch_size * epochs
+    v_dim, h_dim = params["rbm_weight"].shape
+    code = _route_code(route, batch_size, v_dim, h_dim)
+    lib = _library(probe=True)
+    if code == 1:
+        plan = cluster_plan(batch_size, v_dim, h_dim, cluster or MAX_CLUSTER)
+        shape = (steps, plan["tiles"], plan["cluster"], _MARKS)
+    else:  # the probe build's own grid
+        blocks = lib.cd_gibbs_grid(batch_size, v_dim, h_dim,
+                                   v_all.device.index or 0)
+        if blocks < 0:
+            raise RuntimeError(lib.cd_gibbs_error_string(-blocks).decode())
+        shape = (steps, blocks, len(GLOBAL_PHASES) + 1)
+    stamps = torch.zeros(shape, dtype=torch.int64, device=v_all.device)
+    lib.cd_gibbs_probe(stamps.data_ptr(), steps)
+    try:
+        _launch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs, route,
+                cluster, probe=True)
+        torch.cuda.synchronize(v_all.device)
+    finally:
+        lib.cd_gibbs_probe(None, 0)
+    words = (ctypes.c_int * 6)()
+    lib.cd_gibbs_last_launch(words)
+    t = stamps[skip:].double() / 1e3  # us
+    if code == 1:
+        # (steps, tiles, C, marks): intervals between successive marks of a
+        # tile, summed over the tiles; the update from the last tile's
+        # last-but-one mark.
+        d = t[..., 1:] - t[..., :-1]
+        d[:, :-1, :, -1] = 0.0  # the last mark is stamped on the last tile only
+        per = d.sum(dim=1).mean(dim=(0, 1))
+        split = dict(zip(CLUSTER_PHASES, per.tolist()))
+        starts = t[:, 0, :, 0]
+    else:
+        d = t[..., 1:] - t[..., :-1]
+        split = dict(zip(GLOBAL_PHASES, d.mean(dim=(0, 1)).tolist()))
+        starts = t[:, :, 0]
+    split["step"] = float((starts[1:] - starts[:-1]).mean())
+    # The rest of a step: waiting for the copied rows and loading the mask
+    # (cluster route), the loop (global route).
+    split["other"] = split["step"] - sum(v for k_, v in split.items() if k_ != "step")
+    split["launch"] = launch_report(words)
+    return split
 
 
 def _softplus30(a):

@@ -6,8 +6,12 @@ Port of ``ku/pallas/cd_gibbs.py``'s data-parallel part. The kernels,
 _make_dp_kernel``, whose in-kernel RDMA ring sums each step's CD statistics
 over the devices. Here each rank (one process per GPU) takes a step as
 
-- (a) :func:`cd_dp_stats_cuda`: the CD-k chain of kernel #1 over the rank's
-  rows of the step, then the sums over those rows, packed into one buffer of
+- (a) :func:`cd_dp_stats_cuda`: the CD-k step of kernel #1 over the rank's
+  rows of the step, on kernel #1's two routes (the shared step code of
+  ``cd_cluster.cuh`` on one thread-block cluster that loads W into its
+  shared memory, or ``cd_gibbs_chain.cuh`` on a cooperative grid; chosen by
+  the shape, :func:`ku_torch.kernels.cd_gibbs.route_for`, and reported by
+  :func:`last_launch`), its sums over those rows packed into one buffer of
   V·H + H + V + 2 floats (:func:`payload_size`): the W sums, the b_h sums,
   the b_v sums, Σ|ΔF| and Σmask;
 - (b) ``torch.distributed.all_reduce`` of the buffer over the mesh's
@@ -52,7 +56,14 @@ import torch.distributed as dist
 from ku_torch.core.rng import philox_uniforms
 from ku_torch.dist.mesh import axis_info, shard_batch
 from ku_torch.kernels import _build
-from ku_torch.kernels.cd_gibbs import _check, step_sums_torch
+from ku_torch.kernels.cd_gibbs import (
+    ROUTES,
+    _check,
+    _cluster_code,
+    _route_code,
+    launch_report,
+    step_sums_torch,
+)
 
 NAME = "cd_gibbs_dp"
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cd_gibbs_dp.cu"
@@ -72,8 +83,12 @@ def _library() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.cd_dp_grid.argtypes = [i, i, i, i]
     lib.cd_dp_grid.restype = i
-    lib.cd_dp_stats.argtypes = [p] * 10 + [i] * 5 + [u, i, u, i, i, p]
+    lib.cd_dp_stats.argtypes = [p] * 10 + [i] * 5 + [u, i, u, i, i, i, p]
     lib.cd_dp_stats.restype = i
+    lib.cd_dp_cluster.argtypes = [i, i, i, i, i, p]
+    lib.cd_dp_cluster.restype = i
+    lib.cd_dp_last_launch.argtypes = [p]
+    lib.cd_dp_last_launch.restype = None
     lib.cd_dp_apply.argtypes = [p] * 5 + [i, i, ctypes.c_float, i, i, p]
     lib.cd_dp_apply.restype = i
     lib.cd_dp_error_string.argtypes = [i]
@@ -89,12 +104,32 @@ def _raise_on(err: int, what: str):
 
 @functools.lru_cache(maxsize=None)
 def grid_size(batch: int, v_dim: int, h_dim: int, device: int = 0) -> int:
-    """Blocks of (a)'s cooperative grid at this shape (cached: the shape's
-    shared-memory limit is set once)."""
+    """Blocks of (a)'s cooperative grid on the global route at this shape
+    (cached: the shape's shared-memory limit is set once)."""
     grid = _library().cd_dp_grid(batch, v_dim, h_dim, device)
     if grid < 0:
         _raise_on(-grid, "cd_dp_stats")
     return grid
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_size(batch: int, v_dim: int, h_dim: int, cluster: int = 0,
+                 device: int = 0) -> int:
+    """Blocks of (a)'s cluster on the cluster route at this shape: 16 where
+    the card can co-schedule them, else 8 (``cluster`` forces one). Cached:
+    the kernel's attributes are set once a shape."""
+    words = (ctypes.c_int * 6)()
+    _raise_on(_library().cd_dp_cluster(batch, v_dim, h_dim, cluster, device, words),
+              "cd_dp_stats (cluster route)")
+    return int(words[0])
+
+
+def last_launch() -> dict:
+    """What the last (a) launched, as its C entry reports it (see
+    :func:`ku_torch.kernels.cd_gibbs.last_launch`)."""
+    words = (ctypes.c_int * 6)()
+    _library().cd_dp_last_launch(words)
+    return launch_report(words)
 
 
 def payload_size(v_dim: int, h_dim: int) -> int:
@@ -134,13 +169,16 @@ def workspace(rows: int, v_dim: int, h_dim: int, device):
             "diff": torch.empty(rows, **f32)}
 
 
-def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work):
+def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work,
+                   route=None, cluster=None):
     """(a) for a run on the card, every tensor checked once: returns
     ``launch(t, s)``, which queues (a) for flat step ``t`` on step ``s``'s
     rows, ``v_steps[s]`` (lb, V) and ``m_steps[s]`` (lb,), and returns
     ``work["buf"]``. ``params`` may change between launches in value, not
-    in shape or storage. Adds one to ``cd_dp_stats_cuda.launches`` per
-    launch."""
+    in shape or storage. ``route`` and ``cluster`` as for
+    :func:`ku_torch.kernels.cd_gibbs.cd_train_cuda`. Adds one to
+    ``cd_dp_stats_cuda.launches`` and to ``cd_dp_stats_cuda.by_route[route]``
+    per launch."""
     if v_steps.dim() != 3 or m_steps.shape != v_steps.shape[:2]:
         raise ValueError(f"step rows {tuple(v_steps.shape)} and masks "
                          f"{tuple(m_steps.shape)} do not match")
@@ -162,7 +200,10 @@ def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work):
              work["hpos"].data_ptr(), work["vneg"].data_ptr(),
              work["hneg"].data_ptr(), work["diff"].data_ptr(), rows, v_dim,
              h_dim, int(k), int(mode), int(seed))
-    tail = (int(row0), grid_size(rows, v_dim, h_dim, dev), dev,
+    code = _route_code(route, rows, v_dim, h_dim)
+    blocks = (cluster_size(rows, v_dim, h_dim, _cluster_code(cluster), dev) if code
+              else grid_size(rows, v_dim, h_dim, dev))
+    tail = (int(row0), code, blocks, dev,
             torch.cuda.current_stream(v_steps.device).cuda_stream)
     v0, v_stride = v_steps.data_ptr(), 4 * rows * v_dim
     m0, m_stride = m_steps.data_ptr(), 4 * rows
@@ -172,8 +213,9 @@ def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work):
         if not 0 <= s < steps:
             raise IndexError(f"step {s} of {steps}")
         _raise_on(lib.cd_dp_stats(v0 + s * v_stride, m0 + s * m_stride, *fixed,
-                                  t, *tail), "cd_dp_stats")
+                                  t, *tail), f"cd_dp_stats ({ROUTES[code]} route)")
         cd_dp_stats_cuda.launches += 1
+        cd_dp_stats_cuda.by_route[ROUTES[code]] += 1
         return buf
 
     return launch
@@ -205,24 +247,26 @@ def apply_launcher(params, lr, scores):
 
 
 def cd_dp_stats_cuda(params, v_local, m_local, seed, step, k, mode, row0,
-                     work=None):
+                     work=None, route=None, cluster=None):
     """(a) on the card: the step's statistics over this rank's rows.
 
     ``v_local`` (lb, V) and ``m_local`` (lb,) are the rank's rows of the
     step and their mask, ``step`` the flat (epoch·steps + s) step, ``row0``
     the global row of ``v_local``'s first row. Returns the statistics
-    buffer, ``work["buf"]`` when a :func:`workspace` is given. Float32
-    contiguous CUDA tensors only; launches on the current stream and does
-    not synchronise. Adds one to ``cd_dp_stats_cuda.launches`` per launch.
+    buffer, ``work["buf"]`` when a :func:`workspace` is given. ``route`` and
+    ``cluster`` as for :func:`stats_launcher`. Float32 contiguous CUDA
+    tensors only; launches on the current stream and does not synchronise.
+    Adds one to ``cd_dp_stats_cuda.launches`` per launch.
     """
     if work is None:
         work = workspace(v_local.shape[0], v_local.shape[1],
                          params["rbm_weight"].shape[1], v_local.device)
     return stats_launcher(params, v_local[None], m_local[None], seed, k, mode,
-                          row0, work)(int(step), 0)
+                          row0, work, route, cluster)(int(step), 0)
 
 
 cd_dp_stats_cuda.launches = 0
+cd_dp_stats_cuda.by_route = {r: 0 for r in ROUTES}
 
 
 def cd_dp_apply_cuda(params, buf, lr, scores, step):
@@ -344,19 +388,23 @@ cd_train_dp.runs = 0
 
 
 def cd_train_dp_emulated(world, params, v_all, mask, seed, lr, k, mode,
-                         batch_size, epochs, plain=False, uniforms=None):
+                         batch_size, epochs, plain=False, uniforms=None,
+                         route=None):
     """Test aid: a data-parallel run of ``world`` ranks in one process.
 
     Each step runs (a) on every rank's rows, sums the ``world`` buffers in
     rank order with torch ops in place of the all-reduce, then runs (c)
-    once. The kernels on CUDA tensors unless ``plain``; the plain versions
-    otherwise, with ``uniforms`` (the same draws for every rank) if given.
-    Nothing on the main path calls it.
+    once. The kernels on CUDA tensors unless ``plain`` (on ``route``, as
+    :func:`stats_launcher` takes it); the plain versions otherwise, with
+    ``uniforms`` (the same draws for every rank) if given. Nothing on the
+    main path calls it.
     """
     steps, lb = _steps(v_all, batch_size, world)
     _check(params, v_all, mask, k, mode, batch_size, epochs)
     stats, apply = _step_fns(v_all.device, plain)
     extra = {"uniforms": uniforms} if uniforms is not None else {}
+    if route is not None and stats is cd_dp_stats_cuda:
+        extra["route"] = route
     params = _copy(params)
     scores = torch.empty(steps * epochs, dtype=params["rbm_weight"].dtype,
                          device=v_all.device)

@@ -101,6 +101,68 @@ def test_kernel_rejects_what_it_does_not_take(device):
         cd_gibbs.cd_train_cuda(params, v_all.cpu(), mask, 0, 1e-3, 1, 0, 4, 1)
 
 
+# Both routes of kernel #1 (the cluster route, at 16 blocks and at 8, and
+# the global route) against the plain version at the cases above, plus V =
+# 100, which 16 and 8 blocks do not divide, and the RBM's shape.
+ROUTE_CASES = ([(37, 45, 40, 3, 2, 1, 0, True), (6, 4, 16, 4, 2, 2, 0, True),
+                (200, 70, 150, 2, 2, 1, 0, True), (100, 128, 64, 3, 2, 1, 0, True)]
+               + [(37, 45, 40, 3, 1, k, mode, False) for mode in (0, 1, 2) for k in (1, 3)]
+               + [(100, 128, 64, 3, 1, 1, 0, False), (784, 128, 128, 2, 1, 1, 0, False)])
+
+
+@pytest.mark.parametrize("route,cluster", [("cluster", None), ("cluster", 8), ("global", None)])
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_each_route_matches_plain(device, case, route, cluster):
+    v_dim, h_dim, batch, steps, epochs, k, mode, saturated = case
+    tol = ((1e-5, 1e-6), (1e-5, 1e-6)) if saturated else ((1e-5, 1e-5), (1e-4, 1e-4))
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, mode, saturated)
+    args = (params, v_all, mask, 1234, 1e-3, k, mode, batch, epochs)
+    p_k, s_k = cd_gibbs.cd_train_cuda(*args, route=route, cluster=cluster)
+    torch.cuda.synchronize()
+    launch = cd_gibbs.last_launch()
+    assert launch["route"] == route
+    if route == "cluster":
+        plan = cd_gibbs.cluster_plan(batch, v_dim, h_dim, cluster or 16)
+        assert launch["cluster"] == launch["blocks"] == (cluster or 16)
+        assert (launch["batch_tile"], launch["tiles"], launch["smem_bytes"]) == (
+            plan["batch_tile"], plan["tiles"], plan["smem_bytes"])
+    p_p, s_p = cd_gibbs.cd_train_torch(*args)
+    for name in NAMES:
+        torch.testing.assert_close(p_k[name], p_p[name], rtol=tol[0][0], atol=tol[0][1],
+                                   msg=name)
+    torch.testing.assert_close(s_k, s_p, rtol=tol[1][0], atol=tol[1][1])
+
+
+@pytest.mark.parametrize("shape", [(128, 784, 128), (128, 784, 256), (128, 256, 128),
+                                   (40, 37, 45), (16, 6, 4), (32, 784, 128), (128, 4096, 1024)])
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_c_entry_plan_is_cluster_plan(device, shape, cluster):
+    want = cd_gibbs.cluster_plan(*shape, cluster)
+    got = cd_gibbs.c_plan(*shape, cluster)
+    if want["route"] == "global":
+        assert got["smem_bytes"] == 0 and got["batch_tile"] == 0
+    else:
+        assert got == {key: want[key] for key in got}
+
+
+def test_the_path_shape_launches_the_cluster_route(device):
+    params, v_all, mask = _problem(device, 784, 128, 128, 2, 0, False)
+    before = dict(cd_gibbs.cd_train_cuda.by_route)
+    cd_gibbs.cd_train_cuda(params, v_all, mask, 1, 1e-3, 1, 0, 128, 1)
+    torch.cuda.synchronize()
+    launch = cd_gibbs.last_launch()
+    assert launch["route"] == "cluster" and launch["cluster"] == 16
+    assert launch["batch_tile"] == cd_gibbs.cluster_plan(128, 784, 128)["batch_tile"]
+    assert cd_gibbs.cd_train_cuda.by_route["cluster"] == before["cluster"] + 1
+
+
+def test_a_cluster_launch_past_the_budget_is_refused(device):
+    params, v_all, mask = _problem(device, 4096, 1024, 8, 1, 0, True)
+    assert cd_gibbs.route_for(8, 4096, 1024) == "global"
+    with pytest.raises(RuntimeError, match="cluster route"):
+        cd_gibbs.cd_train_cuda(params, v_all, mask, 1, 1e-3, 1, 0, 8, 1, route="cluster")
+
+
 def test_rbm_fit_on_the_card_launches_the_kernel(device):
     rng = np.random.default_rng(1)
     data = (rng.random((300, 50)) < 0.2).astype(np.float32)
@@ -1054,6 +1116,22 @@ def test_dp_kernels_at_world_one_equal_kernel_one(device, mode):
     assert torch.equal(s_dp, s_1)
 
 
+@pytest.mark.parametrize("route", ["cluster", "global"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_dp_kernels_at_world_one_equal_kernel_one_on_each_route(device, mode, route):
+    v_dim, h_dim, batch, steps = DP_SHAPE
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, mode, False)
+    args = (params, v_all, mask, 1234, 1e-3, 2, mode, batch, 2)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args, route=route)
+    assert cd_gibbs_dp.last_launch()["route"] == route
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args, route=route)
+    torch.cuda.synchronize()
+    assert cd_gibbs.last_launch()["route"] == route
+    for name in NAMES:
+        assert torch.equal(p_dp[name], p_1[name]), name
+    assert torch.equal(s_dp, s_1)
+
+
 @pytest.mark.parametrize("saturated", [True, False])
 def test_dp_kernels_at_world_four_match_kernel_one(device, saturated):
     v_dim, h_dim, batch, steps = DP_SHAPE
@@ -1098,6 +1176,7 @@ def test_rbm_fit_with_a_mesh_launches_the_step_kernels(device):
     finally:
         dist.destroy_process_group()
     steps = 3 * 10 + 2 * 10
+    assert cd_gibbs_dp.last_launch()["route"] == "cluster"
     assert cd_gibbs.cd_train_cuda.launches == before[0]
     assert cd_gibbs_dp.cd_dp_stats_cuda.launches == before[1] + steps
     assert cd_gibbs_dp.cd_dp_apply_cuda.launches == before[2] + steps
