@@ -252,6 +252,42 @@ Phases (any failure raises and the script exits non-zero):
    (forward; forward + backward minus forward); then ku's sparse gate: the
    sparse kernels against the dense causal flash forward at 64k (ku's
    sparse_vs_causal_speedup; both on the tensor cores, the route checked).
+23. The RBM examples on the card: examples_torch/rbm/rbm_softmax_mnist.py's
+   MNISTClassifier (examples/rbm/rbm_softmax_mnist_conf.json) trains
+   through train(V, gt) on phase 4's MNIST-like rows (x 255) with labels
+   from the seed, and writes solution.csv to a temp dir through test(...):
+   the header, one row per image, labels in 0-9 equal to the predictions'
+   argmax; the RBM's fit must launch kernel #1 once. Then
+   examples_torch/rbm/dbn_mnist.py's classifier the same way, kernel #1
+   launched once a layer (2). The wall time of each.
+24. The StyleGAN generator at __graft_entry__.entry's conf (128 px,
+   ch_base 1024, max_ch 512, latent / dlatent / dense1 64, 8 mapping
+   layers, 1,000 classes with labels, no mixing, psi 0.7, cutoff 8, lane
+   packing on: the unpacked math), batch 4, weights drawn with numpy from a
+   seed and loaded through state_dict_from_tree (strict): f32 with TF32
+   off and deterministic=True against the same module on the CPU in
+   float64 from the same weights (within 1e-4 of the output's largest
+   entry); bf16 (dtype=torch.bfloat16) against f32 (4e-2 absolute, ku's
+   own limit, tests/test_stylegan.py:182); in training mode with mixing
+   0.9 and the noise on, a finite output and a moving mean that moved.
+25. The discriminator at 128 px, batch 4, the same way: f32 against the
+   CPU float64 forward (1e-4 of the largest entry); r1_penalty on real
+   images and gradient_penalty on their interpolation with phase 24's
+   images, against the same on the CPU in float64 (1e-4 of the largest
+   entry); a second gradient, through the R1 penalty into the
+   discriminator's parameters, finite, its norm printed and held against
+   the CPU float64 one (the difference's norm within 1e-3 of it).
+26. StyleGAN timing: the generator (f32, bf16) and the discriminator (f32,
+   bf16) forward at batch 4, and the generator at batch 12 (bench.py's
+   StyleGAN batch), each the median of 20 calls timed alone by CUDA events
+   after 3 warm-up calls: ms and images/s; one torch.profiler window a
+   case for the device-busy share and the device ops a forward; a bound:
+   the FLOPs of the convolutions and products (FlopCounterMode over one
+   forward, from the shapes) at the f32 peak (TF32 off) or the bf16
+   tensor-core peak, or the bytes of the f32 parameters, the input and the
+   output at the memory rate, whichever is larger. Printed as a
+   `stylegan` JSON line. No TPU kernel lies on this path: the convolutions
+   are cuDNN's.
 
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -263,10 +299,12 @@ import contextlib
 import copy
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -276,6 +314,8 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
+from examples_torch.rbm import dbn_mnist, rbm_softmax_mnist
+from ku_torch.core.config import load_config
 from ku_torch.dist import make_mesh
 from ku_torch.ebm import DBN, RBM
 from ku_torch.engine_ext import Trainer, adam
@@ -283,7 +323,10 @@ from ku_torch.kernels import _build, cd_gibbs, cd_gibbs_dp
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
 from ku_torch.kernels import sparse_attention as sa
+from ku_torch.loss_ext import gradient_penalty, r1_penalty
+from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
+from ku_torch.utility import state_dict_from_tree, tree_from_state_dict
 
 DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
 BWD_KERNELS = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
@@ -325,6 +368,14 @@ HOLD_CYCLES = 200_000
 SP_N, SP_BLOCK, SP_WINDOW, SP_SINKS, SP_TIMED = 8192, 512, 2048, 128, 4
 SP32_N, SP32_BLOCK, SP32_WINDOW, SP32_SINKS, SP32_SEQS = 2048, 128, 512, 64, 8
 GATE_H, GATE_N, GATE_D, GATE_WINDOW = 4, 65536, 64, 4096
+# The StyleGAN phases: __graft_entry__.entry's generator conf (mixing on
+# for the training-mode check only), its discriminator at the same width,
+# the batches timed (entry's and bench.py's) and the calls timed a case.
+SG_CONF = dict(resolution=128, ch_base=1024, max_ch=512, latent_dim=64, dlatent_dim=64,
+               dense1_dim=64, num_mapping_layers=8, num_classes=1000, label_usage=True,
+               mixing_prob=None, trunc_psi=0.7, trunc_cutoff=8, lane_packing=True)
+SG_DISC = dict(resolution=128, ch_base=1024, max_ch=512, label_usage=True)
+SG_BATCH, SG_BENCH_BATCH, SG_REPS = 4, 12, 20
 
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
 # and bf16 on the tensor cores in FLOP/s, and memory bandwidth in bytes/s,
@@ -1440,10 +1491,22 @@ def decode_ptxas(report):
     return out
 
 
-def profiled(fn):
+def profiled(fn, attempts=3):
     """Run fn once under torch.profiler while a thread samples the SM clock
     with nvidia-smi; returns (host wall s, device rows (us, count, name)
-    sorted by time, SM clock samples in MHz)."""
+    sorted by time, SM clock samples in MHz). A window that records no
+    device event at all runs fn again, up to `attempts` times (phase 8's
+    window over 64 standalone decode launches once showed no launch of the
+    kernel); the callers' checks then read the last window."""
+    for attempt in range(1, attempts + 1):
+        wall, rows, clocks = profile_once(fn)
+        if rows:
+            break
+        log(f"profile window {attempt} recorded no device event")
+    return wall, rows, clocks
+
+
+def profile_once(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1481,7 +1544,8 @@ def per_launch_ms(rows, kernel: str) -> float:
     """Device ms per launch of the kernels whose name holds `kernel`."""
     us = sum(r[0] for r in rows if kernel in r[2])
     count = sum(r[1] for r in rows if kernel in r[2])
-    check(count > 0, f"the profile shows no launch of {kernel}")
+    check(count > 0, f"the profile shows no launch of {kernel}: {len(rows)} device rows"
+          + (f", the first {rows[0][2][:120]!r}" if rows else ""))
     return us / count / 1e3
 
 
@@ -2975,6 +3039,264 @@ def sparse_training_path(dev, name) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The RBM examples (phase 23) and StyleGAN (phases 24-26).
+# ---------------------------------------------------------------------------
+
+
+def read_solution(path, n) -> np.ndarray:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "ImageId,Label", f"solution.csv header {lines[0]!r}")
+    check(len(lines) == n + 1, f"solution.csv has {len(lines) - 1} rows, want {n}")
+    rows = np.array([[int(x) for x in line.split(",")] for line in lines[1:]])
+    check(bool((rows[:, 0] == np.arange(1, n + 1)).all()), "solution.csv ImageIds")
+    check(rows[:, 1].min() >= 0 and rows[:, 1].max() <= 9, "solution.csv labels outside 0-9")
+    return rows[:, 1]
+
+
+def rbm_examples(dev):
+    """Phase 23: the two RBM examples' classifiers, trained and tested on
+    the card through their own surface."""
+    V = mnist_like() * 255.0
+    gt = np.random.default_rng(23).integers(0, 10, size=N)
+    conf = load_config(rbm_softmax_mnist.CONF_PATH)
+    examples = (
+        ("rbm_softmax_mnist", lambda tmp: rbm_softmax_mnist.MNISTClassifier(
+            conf, device=dev, model_dir=tmp), 1),
+        ("dbn_mnist", lambda tmp: dbn_mnist.MNISTClassifier(device=dev), 2),
+    )
+    for what, make, want_launches in examples:
+        with tempfile.TemporaryDirectory() as tmp:
+            cd_gibbs.cd_train_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mc = make(tmp)
+            mc.train(V, gt)
+            res = mc.test(V, out_path=os.path.join(tmp, "solution.csv"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cd_gibbs.cd_train_cuda.launches
+            labels = read_solution(os.path.join(tmp, "solution.csv"), N)
+        check(bool(np.isfinite(res).all()), f"{what}: non-finite predictions")
+        check(bool((labels == np.argmax(res, -1)).all()), f"{what}: solution.csv labels")
+        check(launches == want_launches,
+              f"{what}: kernel #1 launched {launches} times, want {want_launches}")
+        log(f"{what}: train + test on {N} rows in {wall:.3f} s; kernel #1 launches "
+            f"{launches}; solution.csv {N} rows, labels 0-9; accuracy on the seed's random "
+            f"labels {float((labels == gt).mean()):.4f}")
+
+
+def stylegan_weights(module, seed):
+    """(params, batch_stats): numpy trees in ku's names, drawn from a seed
+    at the module's shapes. Equalized-LR kernels N(0, 1) (they are scaled
+    at run time), flax dense kernels N(0, 1/in), the label table N(0,
+    1/features), biases and noise weights N(0, 0.1²), the constant N(0, 1),
+    the moving mean N(0, 0.5²); the blur keeps its fixed kernel."""
+    rng = np.random.default_rng(seed)
+    buffers = {n for n, _ in module.named_buffers()}
+    params, stats = {}, {}
+    for name, t in module.state_dict().items():
+        leaf, shape = name.rsplit(".", 1)[-1], tuple(t.shape)
+        if ".blur_" in name:
+            value = t.cpu().numpy()
+        else:
+            scale = {"bias": 0.1, "noise_weight": 0.1, "moving_mean": 0.5,
+                     "embedding": 1 / math.sqrt(shape[-1])}.get(leaf, 1.0)
+            if leaf == "kernel" and name.startswith("map."):
+                scale = 1 / math.sqrt(shape[0])
+            value = (scale * rng.standard_normal(shape)).astype(np.float32)
+        (stats if name in buffers else params)[name] = value
+    return tree_from_state_dict(params), tree_from_state_dict(stats)
+
+
+def load_stylegan(cls, conf, weights, device, **kw):
+    module = cls(**conf, device=device, **kw)
+    module.load_state_dict(state_dict_from_tree(weights[0], device, batch_stats=weights[1]),
+                           strict=True)
+    return module
+
+
+def gen_inputs(seed, batch, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    z1, z2 = (torch.from_numpy(rng.standard_normal((batch, SG_CONF["latent_dim"])))
+              .to(device, dtype) for _ in range(2))
+    label = torch.from_numpy(rng.integers(0, SG_CONF["num_classes"], (batch, 1))).to(device)
+    return z1, label, z2
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, in float64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    check(got.shape == want.shape, f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def stylegan_generator(dev):
+    """Phase 24; returns the f32 generator, its weights and its images."""
+    cpu = torch.device("cpu")
+    template = StyleGANGenerator(**SG_CONF, device=cpu)
+    weights = stylegan_weights(template, seed=24)
+    gen = load_stylegan(StyleGANGenerator, SG_CONF, weights, dev)
+    gen64 = load_stylegan(StyleGANGenerator, SG_CONF, weights, cpu).double()
+    with torch.no_grad():
+        img = gen(gen_inputs(0, SG_BATCH, dev), deterministic=True)
+        img64 = gen64(gen_inputs(0, SG_BATCH, cpu, torch.float64), deterministic=True)
+    torch.cuda.synchronize()
+    check(img.shape == (SG_BATCH, 128, 128, 3) and img.dtype == torch.float32,
+          f"generator output {tuple(img.shape)} {img.dtype}")
+    check(bool(torch.isfinite(img).all()), "non-finite generator output")
+    err = rel_err(img, img64)
+    check(err <= 1e-4, f"generator f32 against CPU float64: {err:.3e} of the largest entry")
+    gen16 = load_stylegan(StyleGANGenerator, SG_CONF, weights, dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        img16 = gen16(gen_inputs(0, SG_BATCH, dev), deterministic=True)
+    check(img16.dtype == torch.float32, f"bf16 generator's output dtype {img16.dtype}")
+    err16 = float((img16 - img).abs().max())
+    check(err16 <= 4e-2, f"generator bf16 against f32: {err16:.3e} > 4e-2")
+    train = load_stylegan(StyleGANGenerator, dict(SG_CONF, mixing_prob=0.9), weights, dev)
+    before = train.truncation.moving_mean.clone()
+    with torch.no_grad():
+        out = train(gen_inputs(1, SG_BATCH, dev), deterministic=False,
+                    generator=torch.Generator(device=dev).manual_seed(24))
+    moved = float((train.truncation.moving_mean - before).abs().max())
+    check(bool(torch.isfinite(out).all()) and out.shape == img.shape,
+          "training-mode generator output")
+    check(moved > 0, "training mode left the moving mean where it was")
+    log(f"StyleGAN generator at entry's conf, batch {SG_BATCH}: f32 (TF32 off) against "
+        f"the CPU in float64 {err:.3e} of the largest entry ({float(img64.abs().max()):.4f}); "
+        f"bf16 against f32 {err16:.3e} abs; training mode (mixing 0.9, noise on): finite, "
+        f"moving mean moved by up to {moved:.3e}")
+    return gen, weights, img
+
+
+def stylegan_discriminator(dev, fake):
+    """Phase 25; returns the f32 discriminator's weights."""
+    cpu = torch.device("cpu")
+    weights = stylegan_weights(StyleGANDiscriminator(**SG_DISC, device=cpu), seed=25)
+    disc = load_stylegan(StyleGANDiscriminator, SG_DISC, weights, dev)
+    disc64 = load_stylegan(StyleGANDiscriminator, SG_DISC, weights, cpu).double()
+    rng = np.random.default_rng(25)
+    real = rng.uniform(-1, 1, (SG_BATCH, 128, 128, 3))
+    labels = rng.integers(0, SG_CONF["num_classes"], (SG_BATCH, 1)).astype(np.float64)
+    eps = rng.uniform(0, 1, (SG_BATCH, 1, 1, 1))
+    interp = eps * real + (1 - eps) * fake.double().cpu().numpy()
+
+    def on(device, dtype, a):
+        return torch.from_numpy(np.asarray(a)).to(device, dtype)
+
+    runs = {}
+    for key, module, device, dtype in (("card", disc, dev, torch.float32),
+                                       ("cpu64", disc64, cpu, torch.float64)):
+        lab = on(device, dtype, labels)
+        d_fn = lambda x, module=module, lab=lab: module((x, lab))  # noqa: E731
+        with torch.no_grad():
+            logits = d_fn(on(device, dtype, real))
+        r1 = r1_penalty(d_fn, on(device, dtype, real))
+        gp = gradient_penalty(d_fn, on(device, dtype, interp))
+        module.zero_grad(set_to_none=True)
+        r1.mean().backward()
+        grad = torch.cat([p.grad.detach().double().cpu().reshape(-1)
+                          for p in module.parameters() if p.grad is not None])
+        runs[key] = (logits, r1.detach(), gp.detach(), grad)
+    torch.cuda.synchronize()
+    (logits, r1, gp, grad), (logits64, r1_64, gp64, grad64) = runs["card"], runs["cpu64"]
+    check(logits.shape == (SG_BATCH, 1) and bool(torch.isfinite(logits).all()),
+          f"discriminator logits {tuple(logits.shape)}")
+    errs = {"logits": rel_err(logits, logits64), "r1_penalty": rel_err(r1, r1_64),
+            "gradient_penalty": rel_err(gp, gp64)}
+    for what, err in errs.items():
+        check(err <= 1e-4, f"discriminator {what} against CPU float64: {err:.3e}")
+    check(bool(torch.isfinite(grad).all()), "non-finite second-order gradient")
+    norm, norm64 = float(grad.norm()), float(grad64.norm())
+    grad_err = float((grad - grad64).norm()) / norm64
+    check(grad_err <= 1e-3, f"second-order gradient against CPU float64: {grad_err:.3e}")
+    log(f"StyleGAN discriminator at 128 px, batch {SG_BATCH}: against the CPU in float64 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" of the largest entry; the R1 penalty's gradient in the parameters (second "
+        f"order): norm {norm:.6e} (CPU float64 {norm64:.6e}), difference {grad_err:.3e} "
+        f"of the norm")
+    return weights
+
+
+def forward_work(call):
+    """FLOPs of the convolutions and products of one forward, from the
+    shapes (torch.utils.flop_counter)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:  # (its module hooks refuse to run under no_grad)
+        call()
+    return counter.get_total_flops()
+
+
+def stylegan_timing(dev, name, gen_weights, disc_weights):
+    """Phase 26: the StyleGAN forwards timed at batch 4 (and the generator
+    at 12) against their bound; the `stylegan` JSON line."""
+    peak_f32, peak_bf16, peak_bw = peaks(name)
+    rows = []
+    cases = [("generator", StyleGANGenerator, SG_CONF, gen_weights, b, dt)
+             for b in (SG_BATCH, SG_BENCH_BATCH) for dt in (torch.float32, torch.bfloat16)]
+    cases[2:2] = [("discriminator", StyleGANDiscriminator, SG_DISC, disc_weights, SG_BATCH,
+                   dt) for dt in (torch.float32, torch.bfloat16)]
+    rng = np.random.default_rng(26)
+    for what, cls, conf, weights, batch, dtype in cases:
+        module = load_stylegan(cls, conf, weights, dev, dtype=dtype)
+        if cls is StyleGANGenerator:
+            inputs = gen_inputs(26, batch, dev)
+            call = lambda m=module, i=inputs: m(i, deterministic=True)  # noqa: E731
+            in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+            out_bytes = batch * 128 * 128 * 3 * 4
+        else:
+            inputs = (torch.from_numpy(rng.uniform(-1, 1, (batch, 128, 128, 3))).to(
+                dev, torch.float32), torch.ones(batch, 1, device=dev))
+            call = lambda m=module, i=inputs: m(i)  # noqa: E731
+            in_bytes = sum(t.numel() * 4 for t in inputs)
+            out_bytes = batch * 4
+        param_bytes = sum(p.numel() * p.element_size() for p in module.parameters())
+        flops = forward_work(call)
+        with torch.no_grad():
+            for _ in range(3):
+                call()
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)) for _ in range(SG_REPS)]
+            for start, end in events:
+                start.record()
+                call()
+                end.record()
+            torch.cuda.synchronize()
+            ms = float(np.median([s.elapsed_time(e) for s, e in events]))
+            wall, prof_rows, clocks = profiled(call)
+        busy_us = sum(r[0] for r in prof_rows)
+        ops = sum(r[1] for r in prof_rows)
+        peak = peak_f32 if dtype == torch.float32 else peak_bf16
+        nbytes = param_bytes + in_bytes + out_bytes
+        flops_ms, bytes_ms = flops / peak * 1e3, nbytes / peak_bw * 1e3
+        row = {"what": f"{what} {str(dtype).split('.')[-1]} batch {batch}", "ms": ms,
+               "images_per_s": batch / (ms / 1e3), "busy_share": busy_us / (wall * 1e6),
+               "device_ops": ops, "device_ms": busy_us / 1e3, "gflop": flops / 1e9,
+               "bytes": nbytes, "bound_ms": max(flops_ms, bytes_ms),
+               "bound_by": "operations" if flops_ms >= bytes_ms else "bytes"}
+        rows.append(row)
+        log(f"{row['what']}: {ms:.4f} ms (median of {SG_REPS}), {row['images_per_s']:.1f} "
+            f"images/s; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({row['gflop']:.3f} GFLOP, {nbytes / 1e6:.2f} MB); one profiled forward: wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+            f"({row['busy_share']:.3f}), {ops} device ops; SM clock {clock_range(clocks)}")
+        for us, count, key in prof_rows[:4]:
+            log(f"  {us:9.1f} us  {count:4d} x  {key[:90]}")
+        del module
+    print(json.dumps({"stylegan": rows}), flush=True)
+
+
+def stylegan_path(dev, name):
+    """Phases 24-26."""
+    gen, gen_weights, img = stylegan_generator(dev)
+    del gen
+    disc_weights = stylegan_discriminator(dev, img)
+    stylegan_timing(dev, name, gen_weights, disc_weights)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3023,6 +3345,9 @@ def main() -> int:
     kernels += training_path(dev, name, next(e for e in kernels if e["name"] == "flash_fwd"))
     torch.cuda.empty_cache()  # the dense-attention training model is gone
     kernels += sparse_training_path(dev, name)
+    torch.cuda.empty_cache()  # the sparse-training model is gone
+    rbm_examples(dev)
+    stylegan_path(dev, name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,27 @@
-"""Attention, transformer blocks, position encodings and serving (port of
-that part of ``ku.nn``): only what is ported is exported."""
+"""The layer zoo (port of ``ku.nn``): the StyleGAN layers, attention,
+transformer blocks, position encodings and serving; only what is ported is
+exported."""
+
+from ku_torch.nn.core import EqualizedLRDense
+from ku_torch.nn.convolution import (
+    EqualizedLRConv1D,
+    EqualizedLRConv2D,
+    EqualizedLRConv3D,
+    FusedEqualizedLRConv1D,
+    FusedEqualizedLRConv2D,
+    FusedEqualizedLRConv3D,
+    FusedEqualizedLRConv2DTranspose,
+    BlurDepthwiseConv2D,
+    DepthwiseConv3D,
+    SeparableConv3D,
+    conv_nd,
+)
+from ku_torch.nn.normalization import AdaptiveIN, AdaptiveINWithStyle, PixelNorm
+from ku_torch.nn.style import (
+    StyleMixingRegularization,
+    TruncationTrick,
+    MinibatchStddevConcat,
+)
 
 from ku_torch.nn.attention import (
     MultiHeadAttention,

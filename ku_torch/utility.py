@@ -81,14 +81,37 @@ def params_to_numpy(tree):
     return _leaf_to_numpy(tree)
 
 
-def state_dict_from_tree(tree, device="cuda") -> Dict[str, torch.Tensor]:
+def state_dict_from_tree(tree, device="cuda", batch_stats=None) -> Dict[str, torch.Tensor]:
     """``ku``'s nested parameters (flax names such as
     ``block0/MultiHeadAttention_1/W_Q``) → a flat state dict of tensors on
     ``device``, keyed ``block0.MultiHeadAttention_1.W_Q``, which the port's
     modules load with ``load_state_dict(..., strict=True)``. Layouts and
-    dtypes stay ``ku``'s (bf16 bit for bit)."""
+    dtypes stay ``ku``'s (bf16 bit for bit). ``batch_stats``, ``ku``'s
+    collection of that name (``truncation/moving_mean``), joins under the
+    same naming: the port keeps it in buffers (``truncation.moving_mean``)."""
+    flat = _flatten(tree)
+    if batch_stats is not None:
+        stats = _flatten(batch_stats)
+        clash = flat.keys() & stats.keys()
+        if clash:
+            raise ValueError(f"names in both params and batch_stats: {sorted(clash)}")
+        flat.update(stats)
     return {key.replace("/", "."): _leaf_to_tensor(value, device)
-            for key, value in _flatten(tree).items()}
+            for key, value in flat.items()}
+
+
+def variables_from_module(module: torch.nn.Module) -> Dict[str, Any]:
+    """A module's state as ``ku``'s variables: ``{"params": parameters,
+    "batch_stats": persistent buffers}``, each a nested dict of numpy
+    arrays under ``ku``'s names; the inverse of loading
+    :func:`state_dict_from_tree` with ``batch_stats``."""
+    state = module.state_dict()
+    params = {name for name, _ in module.named_parameters()}
+    return {
+        "params": tree_from_state_dict({k: v for k, v in state.items() if k in params}),
+        "batch_stats": tree_from_state_dict(
+            {k: v for k, v in state.items() if k not in params}),
+    }
 
 
 def tree_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

@@ -1187,3 +1187,102 @@ def test_rbm_fit_with_a_mesh_launches_the_step_kernels(device):
     for name in NAMES:
         assert torch.equal(rbm.params[name], single.params[name]), name
     assert torch.equal(rbm.last_scores, single.last_scores)
+
+
+# ---------------------------------------------------------------------------
+# StyleGAN on cuDNN (no kernel of the port's own): the card's f32 (TF32 off)
+# against the CPU in float64 from the same weights, within 1e-4 of the
+# output's largest entry; the transposed conv and the stride-2 fused conv
+# alone against the CPU in f32 (1e-5 of the largest entry); a second-order
+# gradient through r1_penalty against the CPU in float64.
+# ---------------------------------------------------------------------------
+
+from ku_torch.loss_ext import r1_penalty  # noqa: E402
+from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator  # noqa: E402
+from ku_torch.nn import FusedEqualizedLRConv2D, FusedEqualizedLRConv2DTranspose  # noqa: E402
+
+# 128 px, so that the fused transposed conv (128-px maps) and the fused
+# stride-2 conv (maps of 64 px and more) run; 8 channels at 128 px.
+SG_NARROW = dict(resolution=128, ch_base=512, max_ch=32)
+
+
+@pytest.fixture
+def no_tf32(device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return device
+
+
+def _rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double()
+    assert got.shape == want.shape
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _pair(cls, seed=0, **kw):
+    """The module on the card and its float64 copy on the CPU, same weights."""
+    cpu = cls(**kw, device="cpu", generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for p in cpu.parameters():  # biases and noise weights off their init
+            if p.dim() == 1:
+                p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(seed + 1))
+    card = cls(**kw, device="cuda")
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    return card, cpu.double()
+
+
+def test_stylegan_generator_f32_matches_cpu_float64(no_tf32):
+    conf = dict(SG_NARROW, latent_dim=16, dlatent_dim=32, dense1_dim=32,
+                num_mapping_layers=3, num_classes=10, mixing_prob=None, trunc_cutoff=4)
+    gen, gen64 = _pair(StyleGANGenerator, **conf)
+    rng = np.random.default_rng(0)
+    z1, z2 = (torch.from_numpy(rng.normal(size=(3, 16))) for _ in range(2))
+    label = torch.from_numpy(rng.integers(0, 10, (3, 1)))
+    with torch.no_grad():
+        want = gen64((z1, label, z2), deterministic=True)
+        got = gen((z1.float().cuda(), label.cuda(), z2.float().cuda()), deterministic=True)
+    assert _rel(got, want) <= 1e-4
+
+
+def test_stylegan_discriminator_f32_matches_cpu_float64(no_tf32):
+    disc, disc64 = _pair(StyleGANDiscriminator, **SG_NARROW)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 128, 128, 3)))
+    label = torch.from_numpy(rng.integers(0, 10, (4, 1)).astype(np.float64))
+    with torch.no_grad():
+        want = disc64((x, label))
+        got = disc((x.float().cuda(), label.float().cuda()))
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("cls,shape,kw", [
+    (FusedEqualizedLRConv2DTranspose, (2, 16, 12, 24), dict(strides=2, padding="same")),
+    (FusedEqualizedLRConv2D, (2, 16, 12, 24), dict(strides=2, padding="same")),
+    (FusedEqualizedLRConv2D, (2, 15, 11, 24), dict(strides=2, padding="same")),
+])
+def test_fused_convs_on_the_card_match_the_cpu(no_tf32, cls, shape, kw):
+    cpu = cls(shape[-1], 40, 3, **kw, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    card = cls(shape[-1], 40, 3, **kw, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=shape).astype(np.float32))
+    with torch.no_grad():
+        assert _rel(card(x.cuda()), cpu(x)) <= 1e-5
+
+
+def test_r1_penalty_second_order_on_the_card(no_tf32):
+    disc, disc64 = _pair(StyleGANDiscriminator, resolution=16, ch_base=64, max_ch=32)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 16, 16, 3)))
+    label = torch.from_numpy(rng.integers(1, 10, (4, 1)).astype(np.float64))
+    grads = []
+    for module, dev, dtype in ((disc, "cuda", torch.float32), (disc64, "cpu", torch.float64)):
+        lab = label.to(dev, dtype)
+        pen = r1_penalty(lambda v, m=module, lab=lab: m((v, lab)), x.to(dev, dtype))
+        pen.mean().backward()
+        grads.append((pen.detach(), torch.cat([p.grad.reshape(-1) for p in module.parameters()
+                                               if p.grad is not None])))
+    (pen, g), (pen64, g64) = grads
+    assert torch.isfinite(g).all()
+    assert _rel(pen, pen64) <= 1e-4
+    assert float((g.double().cpu() - g64).norm() / g64.norm()) <= 1e-3
