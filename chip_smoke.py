@@ -288,6 +288,32 @@ Phases (any failure raises and the script exits non-zero):
    output at the memory rate, whichever is larger. Printed as a
    `stylegan` JSON line. No TPU kernel lies on this path: the convolutions
    are cuDNN's.
+27. The GAN step at bench.py's StyleGAN conf (benchmarks/
+   stylegan_lane_packing.py:36-61: 128 px, ch_base 1024, max_ch 512,
+   dlatent 512, 1,000 classes, mixing 0.9, psi 0.7, cutoff 8, bf16,
+   softplus-R1 with gamma 10 every step, k = 2, batch 12, Adam 1.5e-4 /
+   1.5e-3 with beta (0, 0.99)), its batches drawn as batches_stacked draws
+   them, weights from seeds 27 / 28, through ku_torch.backprop.GAN:
+   (a) one f32 train_step (TF32 off, no mixing, noise weights 0) at batch
+   4 against the same step in float64 on the card, taken piece by piece
+   (see gan_check): labels 1-3, not bench.py's 0-999 (which saturate the
+   losses), and kernels scaled to He's fan-in (he_scaled: at unit scale
+   the discriminator is blind to its image); each loss within 1e-4 plus
+   what its logits' tolerance can move it by, and out of saturation; the
+   moving mean within 1e-4; each update's gradient within 1e-2 of its
+   tensor's largest entry (cuDNN's f32 convolutions); each parameter's
+   change over the step within 1e-4 of the float64 change's largest
+   entry, plus what the gradients' tolerance can move its Adam updates
+   by, plus f32's rounding; (b)
+   GAN(...).compose_gan_with_mode().compile().fit_generator(...) in bf16,
+   1 epoch of 4 steps: a finite history, every parameter, buffer and Adam
+   moment on the card; (c) the median of 20 steps by CUDA events after 3
+   warm-up steps, ms a step and images/s ((k + 1) B / step, ku's
+   formula), the peak memory, one profiled step (device ops, busy share,
+   the top ops), the bound (the step's convolution and product FLOPs,
+   backward passes included, at the bf16 peak, or the f32 parameters and
+   Adam moments read and written, whichever is larger); printed as a
+   `gan_step` JSON line. No TPU kernel lies on this path either.
 
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -297,6 +323,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
@@ -315,6 +342,7 @@ import torch.nn.functional as F
 import torch.distributed as dist
 
 from examples_torch.rbm import dbn_mnist, rbm_softmax_mnist
+from ku_torch.backprop import GAN, STYLE_GAN_SOFTPLUS_INVERSE_R1_GP
 from ku_torch.core.config import load_config
 from ku_torch.dist import make_mesh
 from ku_torch.ebm import DBN, RBM
@@ -326,7 +354,7 @@ from ku_torch.kernels import sparse_attention as sa
 from ku_torch.loss_ext import gradient_penalty, r1_penalty
 from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
-from ku_torch.utility import state_dict_from_tree, tree_from_state_dict
+from ku_torch.utility import _flatten, state_dict_from_tree, tree_from_state_dict
 
 DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
 BWD_KERNELS = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
@@ -376,6 +404,34 @@ SG_CONF = dict(resolution=128, ch_base=1024, max_ch=512, latent_dim=64, dlatent_
                mixing_prob=None, trunc_psi=0.7, trunc_cutoff=8, lane_packing=True)
 SG_DISC = dict(resolution=128, ch_base=1024, max_ch=512, label_usage=True)
 SG_BATCH, SG_BENCH_BATCH, SG_REPS = 4, 12, 20
+# The GAN step (phase 27): bench.py's StyleGAN conf (bench.py:179, that is
+# benchmarks/stylegan_lane_packing.py:36-61, read, not imported): 128 px,
+# ch_base 1024, max_ch 512, latent 64, dlatent 512, dense1 512, 8 mapping
+# layers, 1,000 classes with labels, mixing 0.9, psi 0.7, cutoff 8, lane
+# packing (the unpacked math), bf16; softplus-R1 with gamma 10 every step, 2
+# D updates a G update, batch 12, Adam at 1.5e-4 / 1.5e-3 with beta (0,
+# 0.99). The f32 check against float64 runs at GAN_CHECK_B images with
+# labels in GAN_CHECK_LABELS, within GAN_REL, the gradients within
+# GAN_GRAD_REL (see gan_check); GAN_GROUPS step inputs are timed in turn.
+# GAN_GRAD_REL: cuDNN's f32 convolution algorithms (TF32 off) put the
+# step's gradients up to 2.2e-3 of a tensor's largest entry off float64
+# on the H100 (the discriminator's first update, R1's double backward
+# included; torch's own convolutions 1.8e-4), so 1e-2.
+GAN_CONF = dict(resolution=128, ch_base=1024, max_ch=512, latent_dim=64, dlatent_dim=512,
+                dense1_dim=512, num_mapping_layers=8, num_classes=1000, label_usage=True,
+                mixing_prob=0.9, trunc_psi=0.7, trunc_cutoff=8, lane_packing=True)
+GAN_DISC = dict(resolution=128, ch_base=1024, max_ch=512, label_usage=True, lane_packing=True)
+GAN_K, GAN_B, GAN_CHECK_B, GAN_GROUPS, GAN_WARM, GAN_REPS, GAN_REL = 2, 12, 4, 4, 3, 20, 1e-4
+GAN_GRAD_REL = 1e-2
+GAN_LABELS, GAN_CHECK_LABELS = (0, GAN_CONF["num_classes"]), (1, 4)
+GAN_LR = {"disc": 1.5e-4, "gen": 1.5e-3}
+GAN_ENGINE = {
+    "hps": {"composing_mode": STYLE_GAN_SOFTPLUS_INVERSE_R1_GP, "disc_k_step": GAN_K,
+            "r_gamma": 10.0, "r1_interval": 1,
+            "disc_ext_hps": {"lr": GAN_LR["disc"], "beta_1": 0.0, "beta_2": 0.99},
+            "gen_disc_hps": {"lr": GAN_LR["gen"], "beta_1": 0.0, "beta_2": 0.99}},
+    "nn_arch": {"gen_rng_streams": ["noise", "style"]},
+}
 
 # Published peaks (NVIDIA data sheets, dense): f32 outside the tensor cores
 # and bf16 on the tensor cores in FLOP/s, and memory bandwidth in bytes/s,
@@ -3097,8 +3153,9 @@ def stylegan_weights(module, seed):
     buffers = {n for n, _ in module.named_buffers()}
     params, stats = {}, {}
     for name, t in module.state_dict().items():
-        leaf, shape = name.rsplit(".", 1)[-1], tuple(t.shape)
-        if ".blur_" in name:
+        owner, leaf = (".." + name).rsplit(".", 2)[-2:]
+        shape = tuple(t.shape)
+        if owner.startswith("blur_"):
             value = t.cpu().numpy()
         else:
             scale = {"bias": 0.1, "noise_weight": 0.1, "moving_mean": 0.5,
@@ -3297,6 +3354,369 @@ def stylegan_path(dev, name):
     stylegan_timing(dev, name, gen_weights, disc_weights)
 
 
+# ---------------------------------------------------------------------------
+# The GAN step (phase 27).
+# ---------------------------------------------------------------------------
+
+
+def gan_batches(seed, groups, b, labels=GAN_LABELS):
+    """`groups` steps' inputs, K + 1 batches each, drawn in the order
+    benchmarks/stylegan_lane_packing.py's `batches_stacked` draws them
+    (:64-79): the labels (in [labels[0], labels[1]), bench.py's all the
+    classes), the images, z1, z2."""
+    rng = np.random.default_rng(seed)
+    shape = (groups, GAN_K + 1, b)
+    labels = rng.integers(*labels, size=shape + (1,))
+    res = GAN_CONF["resolution"]
+    x = rng.normal(size=shape + (res, res, 3)).astype(np.float32)
+    z1 = rng.normal(size=shape + (GAN_CONF["latent_dim"],)).astype(np.float32)
+    z2 = rng.normal(size=shape + (GAN_CONF["latent_dim"],)).astype(np.float32)
+    return [[{"x": x[s, i], "z": (z1[s, i], labels[s, i], z2[s, i]),
+              "label": labels[s, i].astype(np.float32)} for i in range(GAN_K + 1)]
+            for s in range(groups)]
+
+
+def gan_on(batch, dev, dtype=torch.float32):
+    """A batch on the card, its floats in `dtype`."""
+    z1, label, z2 = batch["z"]
+    on = lambda a: torch.from_numpy(np.asarray(a)).to(dev, dtype)  # noqa: E731
+    return {"x": on(batch["x"]), "z": (on(z1), torch.from_numpy(label).to(dev), on(z2)),
+            "label": on(batch["label"])}
+
+
+def gan_engine(gen_weights, disc_weights, dev, conf, hps=None, dtype=torch.float32,
+               compute=None):
+    """The engine over the StyleGAN pair loaded from the weights; the
+    parameters in `dtype`, the compute in `compute` (bf16) where given."""
+    kw = {"dtype": compute} if compute is not None else {}
+    gen = load_stylegan(StyleGANGenerator, conf, gen_weights, dev, **kw).to(dtype)
+    disc = load_stylegan(StyleGANDiscriminator, GAN_DISC, disc_weights, dev, **kw).to(dtype)
+    engine_conf = dict(GAN_ENGINE, hps=dict(GAN_ENGINE["hps"], **(hps or {})))
+    engine = GAN(engine_conf, gen, disc).compose_gan_with_mode().compile()
+    engine.init_state(seed=27)
+    return engine
+
+
+def adam_spread(grads, deltas, lr, b2=0.99, eps=1e-8):
+    """The widest change of the sum of an entry's Adam updates (beta1 0)
+    when each update's gradient moves within +-deltas[s] of grads[s]: a
+    grid of 9 points a step. Where a gradient's range holds 0, the update
+    can take either sign: there the bound is the whole range, twice the
+    sum of the largest updates, lr sqrt((1 - b2^t) / (1 - b2)) at step t."""
+    def total(gs):
+        v, out = 0.0, 0.0
+        for t, g in enumerate(gs, 1):
+            v = b2 * v + (1 - b2) * g * g
+            out = out + lr * g / (torch.sqrt(v / (1 - b2 ** t)) + eps)
+        return out
+
+    nominal = total(grads)
+    spread = torch.zeros_like(nominal)
+    for point in itertools.product(np.linspace(-1.0, 1.0, 9).tolist(), repeat=len(grads)):
+        moved = total([g + o * d for g, o, d in zip(grads, point, deltas)])
+        spread = torch.maximum(spread, (moved - nominal).abs())
+    crosses = torch.zeros_like(nominal, dtype=torch.bool)
+    for g, d in zip(grads, deltas):
+        crosses |= g.abs() <= d
+    whole = 2 * lr * sum(math.sqrt((1 - b2 ** t) / (1 - b2)) for t in range(1, len(grads) + 1))
+    return torch.where(crosses, torch.full_like(spread, whole), spread)
+
+
+def grad_deltas(grads, batch):
+    """The tolerance of each gradient tensor: GAN_GRAD_REL of its largest entry;
+    the discriminator's output bias is a difference of the real and the
+    fake rows' terms, so 8 f32 ulps (2^-20) of their summed magnitude, at
+    most 2 sum|label| / B (softplus' slope is at most 1, each row's logit is
+    scaled by its label)."""
+    out = {n: GAN_GRAD_REL * float(g.abs().max()) for n, g in grads.items()}
+    if "dense_out.bias" in out:
+        bound = 2.0 * float(np.abs(batch["label"]).sum()) / batch["label"].shape[0]
+        out["dense_out.bias"] = max(out["dense_out.bias"], 2.0 ** -20 * bound)
+    return out
+
+
+def loss_tolerance(loss, logits, slopes):
+    """GAN_REL of the loss plus what logits within GAN_REL of their largest
+    entry can move it by, to first order (`slopes`: the loss's derivative
+    in each logit)."""
+    scale = max(float(d.abs().max()) for d in logits)
+    return GAN_REL * abs(float(loss.detach())) + GAN_REL * scale * sum(
+        float(s.abs().sum()) for s in slopes)
+
+
+def gan_pieces(engine, batches):
+    """The step taken piece by piece as train_step takes it (the k fakes,
+    k D updates, one G update), on `engine`: each loss with its tolerance
+    (loss_tolerance) and each update's gradient by parameter name."""
+    draws = engine.state["gen"].generator
+    b = batches[0]["x"].shape[0]
+    losses, tols, grads = [], [], []
+
+    def update(side, module, loss):
+        g = torch.autograd.grad(loss, engine.state[side].params, allow_unused=True,
+                                materialize_grads=True)
+        grads.append(dict(zip([n for n, _ in module.named_parameters()], g)))
+        engine.state[side].apply_gradients(g)
+        losses.append(loss.detach())
+
+    for batch, fake in zip(batches, engine._gen_fakes(batches[:GAN_K], draws)):
+        loss = engine._disc_loss(batch, draws, fake)
+        with torch.no_grad():
+            d_real = engine.disc((batch["x"], batch["label"]))
+            d_fake = engine.disc((fake, batch["label"]))
+        tols.append(loss_tolerance(loss, (d_real, d_fake),
+                                   (torch.sigmoid(-d_real) / b, torch.sigmoid(d_fake) / b)))
+        update("disc", engine.disc, loss)
+    batch = batches[GAN_K]
+    loss = engine._gen_loss(batch, draws)
+    with torch.no_grad():
+        d_fake = engine.disc((engine._gen_fake(batch, draws), batch["label"]))
+    tols.append(loss_tolerance(loss, (d_fake,), (torch.sigmoid(-d_fake) / b,)))
+    update("gen", engine.gen, loss)
+    return torch.stack(losses), tols, grads
+
+
+def he_scaled(cls, conf, weights, dev, *inputs):
+    """`weights` with each equalized-LR kernel scaled by sqrt(fan_in_call /
+    fan_in_kernel). ku's equalized-LR layers take the fan-in of their
+    coefficient from the input at call time, spatial size included
+    (ku/nn/convolution.py, as the port does), so at 128 px each
+    convolution shrinks its output by up to sqrt(128 * 128 / 1): with
+    kernels of unit scale the discriminator's logit does not depend on its
+    image (to ~1e-12) and the generator's gradient is ~1e-14, far below
+    Adam's epsilon. The scaled kernels give each layer He's scale, so that
+    every gradient of the step carries a check. The fan-ins are read by
+    hooks from one forward on `inputs`."""
+    module = load_stylegan(cls, conf, weights, dev)
+    ratios, hooks = {}, []
+    for name, sub in module.named_modules():
+        if hasattr(sub, "gain") and isinstance(getattr(sub, "kernel", None), torch.nn.Parameter):
+            def hook(sub, args, name=name):
+                ratios[name] = math.prod(args[0].shape[1:]) / math.prod(sub.kernel.shape[:-1])
+            hooks.append(sub.register_forward_pre_hook(hook))
+    with torch.no_grad():
+        module(inputs, deterministic=True)
+    for h in hooks:
+        h.remove()
+    del module
+    params = _flatten(weights[0])
+    for name, ratio in ratios.items():
+        key = name.replace(".", "/") + "/kernel"
+        params[key] = (params[key] * math.sqrt(ratio)).astype(np.float32)
+    return tree_from_state_dict(params), weights[1]
+
+
+def gan_check(dev, gen_weights, disc_weights):
+    """Phase 27 (a): one f32 train_step (TF32 off, mixing off, every noise
+    weight 0) against the same step in float64 on the card, taken piece by
+    piece with torch's own convolutions (cuDNN's float64 ones took most of
+    the check's time), same batches (labels in GAN_CHECK_LABELS, so that no
+    loss saturates) and weights (he_scaled, so that no gradient vanishes).
+
+    - Each loss within loss_tolerance, and above 1e-3 (out of saturation,
+      where its gradient carries the check).
+    - The moving mean within GAN_REL of its largest entry.
+    - Each update's gradient, the f32 step taken piece by piece against
+      the float64 one, within grad_deltas.
+    - Each parameter's change over the step (after - before) within
+      GAN_REL of the float64 change's largest entry, plus the widest change
+      of its Adam updates over gradients within grad_deltas (Adam's first
+      update with beta1 0, lr g / (|g| + 1e-8), has a slope of 1e5 at g =
+      0, so an entry whose gradient is within rounding of 0 moves by up to
+      2 lr), plus f32's rounding of each update, 2^-24 of the entry's
+      magnitude. A skipped update or one of the wrong sign misses by about
+      lr. The noise weights move by about +-lr (their gradient is the
+      noise's), held to |w| <= lr."""
+    conf = dict(GAN_CONF, mixing_prob=None)
+    batches = gan_batches(0, 1, GAN_CHECK_B, GAN_CHECK_LABELS)[0]
+    one = gan_on(batches[0], dev)
+    params, stats = he_scaled(StyleGANGenerator, conf, gen_weights, dev, *one["z"])
+    params = tree_from_state_dict({k: (np.zeros_like(v) if k.endswith("noise_weight") else v)
+                                   for k, v in _flatten(params).items()})
+    disc_weights = he_scaled(StyleGANDiscriminator, GAN_DISC, disc_weights, dev, one["x"],
+                             one["label"])
+    f32, f64 = torch.float32, torch.float64
+
+    pieces = {}
+    for dtype in (f32, f64):
+        engine = gan_engine((params, stats), disc_weights, dev, conf, dtype=dtype)
+        before = {side: {n: p.detach().clone() for n, p in getattr(engine, side)
+                         .named_parameters()} for side in ("disc", "gen")}
+        torch.backends.cudnn.enabled = dtype == f32
+        try:
+            pieces[dtype] = (before, engine, *gan_pieces(engine, [gan_on(b, dev, dtype)
+                                                                    for b in batches]))
+        finally:
+            torch.backends.cudnn.enabled = True
+    before, ref, l64, tols, grads64 = pieces[f64]
+    grads32 = pieces[f32][4]
+    del pieces
+    deltas = [grad_deltas(g, raw) for g, raw in zip(grads64, batches)]
+    worst_grad = (0.0, "")
+    for i, (got, want, delta) in enumerate(zip(grads32, grads64, deltas)):
+        check(got.keys() == want.keys(), f"update {i}: parameter names differ")
+        for name, w in want.items():
+            if name.endswith("noise_weight"):
+                continue
+            err = float((got[name].double() - w).abs().max())
+            check(err <= delta[name], f"GAN step update {i} gradient {name}: f32 against "
+                  f"float64 {err:.3e} > {delta[name]:.3e}")
+            worst_grad = max(worst_grad, (err / max(delta[name], 1e-300), f"{i} {name}"))
+
+    engine = gan_engine((params, stats), disc_weights, dev, conf, dtype=f32)
+    d, g_loss = engine.train_step([gan_on(b, dev, f32) for b in batches], GAN_K)
+    torch.cuda.synchronize()
+    l32 = torch.cat([d, g_loss[None]])
+    mm_err = rel_err(engine.gen.truncation.moving_mean, ref.gen.truncation.moving_mean)
+    check(mm_err <= GAN_REL, f"GAN step moving mean: f32 against float64 {mm_err:.3e}")
+    loss_ratios = [abs(float(a) - float(b)) / t for a, b, t in zip(l32, l64, tols)]
+    check(max(loss_ratios) <= 1.0, f"GAN step losses {l32.tolist()} against float64 "
+          f"{l64.tolist()}: {loss_ratios} of their tolerances {tols}")
+    check(float(l64.min()) > 1e-3, f"GAN step losses {l64.tolist()} saturated")
+    worst = (0.0, "")
+    updates = {"disc": grads64[:GAN_K], "gen": grads64[GAN_K:]}
+    for side in ("disc", "gen"):
+        lr, n = GAN_LR[side], len(updates[side])
+        got = dict(getattr(engine, side).named_parameters())
+        for name, want in getattr(ref, side).named_parameters():
+            if name.endswith("noise_weight"):
+                check(float(got[name].detach().abs().max()) <= lr * (1 + 1e-5)
+                      and float(want.abs().max()) <= lr * (1 + 1e-9), f"{name} moved past lr")
+                continue
+            start = before[side][name]
+            want = want.detach() - start
+            err = ((got[name].detach().double() - start) - want).abs()
+            tol = (GAN_REL * float(want.abs().max())
+                   + adam_spread([g[name] for g in updates[side]],
+                                 [dl[name] for dl in (deltas[:GAN_K] if side == "disc"
+                                                      else deltas[GAN_K:])], lr)
+                   + n * 2.0 ** -24 * (start.abs() + 2 * n * lr))
+            ratio = float((err / tol).max())
+            check(ratio <= 1.0, f"GAN step {side} {name}: change f32 against float64 "
+                  f"{float(err.max()):.3e}, {ratio:.3f} of its tolerance")
+            worst = max(worst, (ratio, f"{side} {name}"))
+    log(f"GAN step at bench.py's conf, batch {GAN_CHECK_B}, labels {GAN_CHECK_LABELS[0]}-"
+        f"{GAN_CHECK_LABELS[1] - 1}, f32 (TF32 off, no mixing, noise weights 0) against "
+        f"float64 on the card: D losses {l32[:GAN_K].tolist()}, G loss {float(l32[GAN_K]):.6e} "
+        f"(float64 {l64[:GAN_K].tolist()}, {float(l64[GAN_K]):.6e}), each at most "
+        f"{max(loss_ratios):.3e} of its tolerance ({', '.join(f'{t:.3e}' for t in tols)}); "
+        f"moving mean {mm_err:.3e} of its largest entry (limit {GAN_REL}); gradients at most "
+        f"{worst_grad[0]:.3e} of their tolerance ({GAN_GRAD_REL} of each tensor's largest "
+        f"entry; update {worst_grad[1]}); parameters' "
+        f"changes at most {worst[0]:.3f} of their tolerance ({worst[1]})")
+
+
+def step_flops(call):
+    """FLOPs of the convolutions and products of one call, its backward
+    passes included, from the shapes: torch.utils.flop_counter's formulas
+    read by a dispatch mode (FlopCounterMode's module hooks refuse
+    torch.autograd.grad, which R1 takes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                Count.total += formula(*args, **kwargs, out_val=out)
+            return out
+
+    with Count():
+        call()
+    return Count.total
+
+
+def gan_state_on(engine, dev) -> bool:
+    """Every parameter, buffer and optimizer state tensor of the engine on
+    the card, and its draws too."""
+    tensors = [*engine.gen.parameters(), *engine.gen.buffers(), *engine.disc.parameters(),
+               *engine.disc.buffers()]
+    for side in ("gen", "disc"):
+        for state in engine.state[side].optimizer.state.values():
+            tensors += [v for k, v in state.items() if k != "step"]
+    return (all(t.device.type == dev.type for t in tensors)
+            and engine.state["gen"].generator.device.type == dev.type)
+
+
+def gan_path(dev, name, gen_weights, disc_weights):
+    """Phase 27 (b) and (c): fit_generator in bf16 at bench.py's conf, then
+    the step timed, profiled and held against its bound; the `gan_step`
+    JSON line."""
+    groups = gan_batches(0, GAN_GROUPS, GAN_B)
+    engine = gan_engine(gen_weights, disc_weights, dev, GAN_CONF,
+                        hps={"epochs": 1, "batch_step": GAN_GROUPS}, compute=torch.bfloat16)
+    wall = time.perf_counter()
+    history = engine.fit_generator(iter([b for group in groups for b in group]), verbose=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    check(all(np.isfinite(v).all() for v in history.values()),
+          f"fit_generator history not finite: {history}")
+    check(gan_state_on(engine, dev), "a parameter, buffer or optimizer state left the card")
+    check(engine.state["gen"].step == GAN_GROUPS
+          and engine.state["disc"].step == GAN_GROUPS * GAN_K,
+          f"steps {engine.state['gen'].step} / {engine.state['disc'].step}")
+    log(f"GAN.fit_generator, bf16, {GAN_GROUPS} steps of batch {GAN_B}: history {history}, "
+        f"{wall:.3f} s with the first steps' warm-up; every parameter, buffer and Adam "
+        f"moment on the card")
+
+    on_card = [[gan_on(b, dev) for b in group] for group in groups]
+    step = lambda i=0: engine.train_step(on_card[i % GAN_GROUPS], GAN_K)  # noqa: E731
+    for i in range(GAN_WARM):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(GAN_REPS)]
+    for i, (start, end) in enumerate(events):
+        start.record()
+        step(i)
+        end.record()
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in events]
+    ms = float(np.median(times))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    prof_wall, rows, clocks = profiled(step)
+    flops = step_flops(step)
+    peak_f32, peak_bf16, peak_bw = peaks(name)
+    params = [*engine.gen.parameters(), *engine.disc.parameters()]
+    # Each parameter and its two Adam moments read once and written once,
+    # f32; the step's K + 1 batches read once.
+    nbytes = 6 * sum(p.numel() * p.element_size() for p in params) + sum(
+        t.numel() * t.element_size() for b in on_card[0] for t in (b["x"], *b["z"], b["label"]))
+    flops_ms, bytes_ms = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    busy_us = sum(r[0] for r in rows)
+    row = {"what": f"StyleGAN GAN step bf16, batch {GAN_B}, {GAN_K} D + 1 G updates",
+           "ms_per_step": ms, "ms_min": min(times), "ms_max": max(times),
+           "images_per_s": (GAN_K + 1) * GAN_B / (ms / 1e3),
+           "device_ops": sum(r[1] for r in rows), "device_ms": busy_us / 1e3,
+           "profiled_wall_ms": prof_wall * 1e3, "busy_share": busy_us / (prof_wall * 1e6),
+           "gflop": flops / 1e9, "bytes": nbytes, "bound_ms": max(flops_ms, bytes_ms),
+           "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+           "peak_memory_gib": peak_bytes / 2 ** 30}
+    log(f"{row['what']}: {ms:.4f} ms a step (median of {GAN_REPS}, {min(times):.4f}.."
+        f"{max(times):.4f}), {row['images_per_s']:.1f} images/s ((k + 1) B / step); bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({row['gflop']:.3f} GFLOP at the bf16 "
+        f"peak, {nbytes / 1e6:.2f} MB), {ms / row['bound_ms']:.1f}x off; peak memory "
+        f"{row['peak_memory_gib']:.3f} GiB")
+    log_profile("one GAN step", prof_wall, rows, clocks)
+    print(json.dumps({"gan_step": row}), flush=True)
+    return row
+
+
+def stylegan_gan(dev, name):
+    """Phase 27."""
+    cpu = torch.device("cpu")
+    gen_weights = stylegan_weights(StyleGANGenerator(**GAN_CONF, device=cpu), seed=27)
+    disc_weights = stylegan_weights(StyleGANDiscriminator(**GAN_DISC, device=cpu), seed=28)
+    gan_check(dev, gen_weights, disc_weights)
+    torch.cuda.empty_cache()
+    gan_path(dev, name, gen_weights, disc_weights)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3348,6 +3768,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the sparse-training model is gone
     rbm_examples(dev)
     stylegan_path(dev, name)
+    stylegan_gan(dev, name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

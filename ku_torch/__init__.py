@@ -15,17 +15,19 @@ flash decoding, dense and paged (:mod:`ku_torch.kernels.flash_attention`,
 :mod:`ku_torch.kernels.decode_attention`), and whose ``use_flash``
 attention trains through hand-written flash backward kernels; ``ku``'s
 ``Trainer`` (:mod:`ku_torch.engine_ext`); the StyleGAN generator and
-discriminator (:mod:`ku_torch.models`), on cuDNN's convolutions; the GAN
-losses and gradient penalties (:mod:`ku_torch.loss_ext`), ``MeanIoUExt``
+discriminator (:mod:`ku_torch.models`), on cuDNN's convolutions, and the GAN
+engine that trains them in five composing modes (:mod:`ku_torch.backprop`);
+the GAN losses and gradient penalties (:mod:`ku_torch.loss_ext`), ``MeanIoUExt``
 (:mod:`ku_torch.metrics_ext`) and ``he_normal``
-(:mod:`ku_torch.initializers_ext`); the JSON config contract and
-seed streams (:mod:`ku_torch.core`); and the JSON+npz weight files and
+(:mod:`ku_torch.initializers_ext`); the JSON config contract,
+seed streams and ``TrainState`` (:mod:`ku_torch.core`); and the JSON+npz weight files and
 state-dict conversion shared with ``ku`` (:mod:`ku_torch.utility`). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from ku_torch.core import config as config
 from ku_torch.core import rng as rng
+from ku_torch.core.state import TrainState
 
 from ku_torch.ebm.rbm import RBM, MODE_VISIBLE_BERNOULLI, MODE_VISIBLE_GAUSSIAN, MODE_COMPLEX
 from ku_torch.ebm.dbn import DBN
@@ -65,6 +67,19 @@ from ku_torch.utility import (
     variables_from_module,
 )
 
+from ku_torch.backprop import (
+    STYLE_GAN_REGULAR,
+    STYLE_GAN_WGAN_GP,
+    STYLE_GAN_SOFTPLUS_INVERSE_R1_GP,
+    LSGAN,
+    PIX2PIX_GAN,
+    AbstractGAN,
+    GAN,
+    compose_gan_with_mode,
+    get_loss_conf,
+)
+
+from ku_torch import backprop as backprop
 from ku_torch import dist as dist
 from ku_torch import ebm as ebm
 from ku_torch import engine_ext as engine_ext

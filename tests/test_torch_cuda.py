@@ -1286,3 +1286,189 @@ def test_r1_penalty_second_order_on_the_card(no_tf32):
     assert torch.isfinite(g).all()
     assert _rel(pen, pen64) <= 1e-4
     assert float((g.double().cpu() - g64).norm() / g64.norm()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The GAN engine on the card (no kernel of the port's own): a StyleGAN step
+# at tests/test_torch_stylegan.py's TEST_CONF in f32 (TF32 off) against the
+# same step in float64 on the card, and fit_generator keeping its state
+# there.
+# ---------------------------------------------------------------------------
+
+import itertools  # noqa: E402
+
+from ku_torch.backprop import GAN, STYLE_GAN_SOFTPLUS_INVERSE_R1_GP  # noqa: E402
+
+GAN_TEST_CONF = dict(resolution=16, ch_base=64, max_ch=32, latent_dim=16, dlatent_dim=32,
+                     dense1_dim=32, num_mapping_layers=3, num_classes=10, label_usage=True,
+                     mixing_prob=None, trunc_psi=0.7, trunc_cutoff=4)
+GAN_TEST_DISC = dict(resolution=16, ch_base=64, max_ch=32, label_usage=True)
+GAN_TEST_ENGINE = {
+    "hps": {"composing_mode": STYLE_GAN_SOFTPLUS_INVERSE_R1_GP, "disc_k_step": 2,
+            "r_gamma": 10.0, "epochs": 1, "batch_step": 2,
+            "disc_ext_hps": {"lr": 1e-3, "beta_1": 0.0, "beta_2": 0.99},
+            "gen_disc_hps": {"lr": 1e-3, "beta_1": 0.0, "beta_2": 0.99}},
+    "nn_arch": {"gen_rng_streams": ["noise", "style"]},
+}
+
+
+def _gan_batches(n, seed=0, b=4):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        label = rng.integers(0, 10, size=(b, 1))
+        out.append({"x": rng.normal(size=(b, 16, 16, 3)).astype(np.float32),
+                    "z": (rng.normal(size=(b, 16)).astype(np.float32), label,
+                          rng.normal(size=(b, 16)).astype(np.float32)),
+                    "label": label.astype(np.float32)})
+    return out
+
+
+def _gan_pair(param_dtype, **gen_kw):
+    """The engine on the card in `param_dtype`, from seeded CPU modules whose noise
+    weights are 0 and whose constant and moving mean are drawn (a constant
+    map with the noise off makes the first AdaIN's sigma 0)."""
+    gen = StyleGANGenerator(**dict(GAN_TEST_CONF, **gen_kw), device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    disc = StyleGANDiscriminator(**GAN_TEST_DISC, device="cpu",
+                                 generator=torch.Generator().manual_seed(1))
+    draw = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("noise_weight"):
+                p.zero_()
+        gen.synthesis.const_input.normal_(generator=draw)
+        gen.truncation.moving_mean.normal_(generator=draw)
+    engine = GAN(GAN_TEST_ENGINE, gen.to("cuda", param_dtype), disc.to("cuda", param_dtype))
+    return engine.compose_gan_with_mode().compile().init_state(seed=0)
+
+
+def _gan_on(batch, dtype):
+    z1, label, z2 = batch["z"]
+    on = lambda a: torch.from_numpy(a).to("cuda", dtype)  # noqa: E731
+    return {"x": on(batch["x"]), "z": (on(z1), torch.from_numpy(label).cuda(), on(z2)),
+            "label": on(batch["label"])}
+
+
+def _adam_spread(grads, deltas, lr=1e-3, b2=0.99, eps=1e-8):
+    """The widest change of the sum of an entry's Adam updates (beta1 0)
+    when each update's gradient moves within +-deltas[s] of grads[s]: a
+    grid of 9 points a step. Where a gradient's range holds 0, the update
+    can take either sign: there the bound is the whole range, twice the
+    sum of the largest updates, lr sqrt((1 - b2^t) / (1 - b2)) at step t."""
+    def total(gs):
+        v, out = 0.0, 0.0
+        for t, g in enumerate(gs, 1):
+            v = b2 * v + (1 - b2) * g * g
+            out = out + lr * g / (torch.sqrt(v / (1 - b2 ** t)) + eps)
+        return out
+
+    nominal = total(grads)
+    spread = torch.zeros_like(nominal)
+    for point in itertools.product(np.linspace(-1.0, 1.0, 9).tolist(), repeat=len(grads)):
+        moved = total([g + o * d for g, o, d in zip(grads, point, deltas)])
+        spread = torch.maximum(spread, (moved - nominal).abs())
+    crosses = torch.zeros_like(nominal, dtype=torch.bool)
+    for g, d in zip(grads, deltas):
+        crosses |= g.abs() <= d
+    whole = 2 * lr * sum(((1 - b2 ** t) / (1 - b2)) ** 0.5 for t in range(1, len(grads) + 1))
+    return torch.where(crosses, torch.full_like(spread, whole), spread)
+
+
+def _gan_params(engine):
+    return {side: {n: p.detach().double().clone()
+                   for n, p in getattr(engine, side).named_parameters()}
+            for side in ("disc", "gen")}
+
+
+def _gan_pieces(engine, on):
+    """The step taken piece by piece as train_step takes it (the k fakes, k
+    D updates, one G update): the losses, and each update's gradient by
+    parameter name."""
+    draws = engine.state["gen"].generator
+    losses, grads = [], []
+
+    def update(side, loss):
+        names = [n for n, _ in getattr(engine, side).named_parameters()]
+        g = torch.autograd.grad(loss, engine.state[side].params, allow_unused=True,
+                                materialize_grads=True)
+        grads.append(dict(zip(names, g)))
+        engine.state[side].apply_gradients(g)
+        losses.append(loss.detach())
+
+    for batch, fake in zip(on, engine._gen_fakes(on[:2], draws)):
+        update("disc", engine._disc_loss(batch, draws, fake))
+    update("gen", engine._gen_loss(on[2], draws))
+    return torch.stack(losses), grads
+
+
+def test_gan_step_f32_matches_float64_on_the_card(no_tf32):
+    """One f32 train_step (k = 2) against the same step in float64 taken
+    piece by piece: the D losses, the G loss and the moving mean within
+    1e-4 of their largest entry; the gradient of each update, f32 against
+    float64 (both taken piece by piece), within 1e-4 of each tensor's
+    largest entry, but the discriminator's output bias, a difference of the
+    real and the fake rows' terms, within 8 f32 ulps of their summed
+    magnitude (at most 2 sum|label| / B); each parameter's change over the
+    step (after - before) within 1e-4 of the float64 change's largest
+    entry, plus what gradients within their tolerance can move its Adam
+    updates by (Adam's first update with beta1 0 has a slope of 1e5 at g =
+    0), plus f32's rounding of each update (2^-24 of the entry's
+    magnitude). A skipped update, or one of the wrong sign, misses by
+    about lr. The noise weights move by about +-lr (their gradient is the
+    noise's): |w| <= lr."""
+    batches = _gan_batches(3)
+    ref = _gan_pair(torch.float64)
+    before = _gan_params(ref)
+    losses64, grads64 = _gan_pieces(ref, [_gan_on(b, torch.float64) for b in batches])
+    change64 = {side: {n: p - before[side][n] for n, p in after.items()}
+                for side, after in _gan_params(ref).items()}
+    _, grads = _gan_pieces(_gan_pair(torch.float32), [_gan_on(b, torch.float32)
+                                                      for b in batches])
+    engine = _gan_pair(torch.float32)
+    d, g = engine.train_step([_gan_on(b, torch.float32) for b in batches], 2)
+    for got, want in ((d, losses64[:2]), (g, losses64[2]),
+                      (engine.gen.truncation.moving_mean, ref.gen.truncation.moving_mean)):
+        assert _rel(got, want.cpu()) <= 1e-4
+    deltas = []
+    for i, (got, want) in enumerate(zip(grads, grads64)):
+        assert got.keys() == want.keys()
+        deltas.append({})
+        for name, w in want.items():
+            if name.endswith("noise_weight"):
+                continue
+            err = float((got[name].double() - w).abs().max())
+            tol = 1e-4 * float(w.abs().max())
+            if name == "dense_out.bias":
+                tol = max(tol, 2.0 ** -20 * 2.0 * np.abs(batches[i]["label"]).sum() / 4)
+            assert err <= tol, (i, name, err, tol)
+            deltas[-1][name] = tol
+    for side, updates in (("disc", range(2)), ("gen", range(2, 3))):
+        n = len(updates)
+        for name, after in _gan_params(engine)[side].items():
+            got, want = after - before[side][name], change64[side][name]
+            if name.endswith("noise_weight"):
+                assert float(got.abs().max()) <= 1e-3 * (1 + 1e-5), name
+                continue
+            tol = (1e-4 * float(want.abs().max())
+                   + _adam_spread([grads64[u][name] for u in updates],
+                                  [deltas[u][name] for u in updates])
+                   + n * 2.0 ** -24 * (before[side][name].abs() + 2 * n * 1e-3))
+            assert ((got - want).abs() <= tol).all(), (side, name,
+                                                      float((got - want).abs().max()))
+
+
+def test_fit_generator_keeps_its_state_on_the_card(device):
+    """bf16 fit_generator: a finite history; every parameter, buffer, Adam
+    moment and the draws on the card."""
+    engine = _gan_pair(torch.float32, dtype=torch.bfloat16, mixing_prob=0.9)
+    history = engine.fit_generator(iter(_gan_batches(6)), verbose=0)
+    assert np.isfinite(history["disc_ext_loss"]).all()
+    assert np.isfinite(history["gen_disc_loss"]).all()
+    assert engine.state["gen"].step == 2 and engine.state["disc"].step == 4
+    tensors = [*engine.gen.parameters(), *engine.gen.buffers(), *engine.disc.parameters()]
+    for side in ("gen", "disc"):
+        for state in engine.state[side].optimizer.state.values():
+            tensors += [state["exp_avg"], state["exp_avg_sq"]]
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert engine.state["gen"].generator.device.type == "cuda"
