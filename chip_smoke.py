@@ -314,6 +314,48 @@ Phases (any failure raises and the script exits non-zero):
    backward passes included, at the bf16 peak, or the f32 parameters and
    Adam moments read and written, whichever is larger); printed as a
    `gan_step` JSON line. No TPU kernel lies on this path either.
+28. The layer-spec engine and the autoencoder: a strided conv autoencoder
+   (conv2d stride 2 twice, reversed into conv2d_transpose) at batch 16 on
+   28 x 28 and a dense_bn one (784 -> 256 -> 64 -> 32, reversed) at batch
+   128, each built by make_autoencoder_from_encoder in float64 on the CPU
+   and copied to the card in f32; one Trainer(has_batch_stats=True) SGD
+   step each: the step's outputs and loss, the batch statistics after it
+   and the inference outputs within 1e-4 of the float64 ones' largest
+   entry, each parameter's change within 1e-3 of the float64 change's
+   largest entry plus f32's rounding (a Dense bias feeding a BatchNorm,
+   which has no gradient in exact arithmetic, within 1e-6 of the step's
+   largest change). Then examples_torch/autoencoder/autoencoder_mnist.py
+   at its full width (784 -> 256 -> 64 -> 32 and its reversal, batch 128,
+   Adam 1e-3, 3 epochs) on examples_torch/common.mnist_like's 60,032
+   seeded MNIST-like rows: the MSE by epoch (finite, falling), the
+   reconstruction MSE, the softmax probe's accuracy (above 0.5 over 10
+   classes), ms a step and samples/s; an `autoencoder_mnist` JSON line.
+29. The StyleGAN example at style_based_gan_conf.json's full width (128 px,
+   ch_base 1,024, max_ch 512, latent / dlatent / dense1 64, 8 mapping
+   layers, 70,000 classes, mixing 0.9, psi 0, cutoff 8, batch 12, k = 2,
+   softplus-R1 gamma 10, Adam 1.5e-4 / 1.5e-3 with beta (0, 0.99), f32),
+   cut in scale only: batch_step 64 -> 4, steps_per_call 32 -> 2, one
+   epoch a stage (fit_progressively's schedule; 12 in the conf); FFHQ's
+   thumbnails are not in the repository, so the sequence's synthetic
+   batches. (a) Phase 27's check at stage 1 (16 px), its float64
+   reference on the CPU. (b) StyleGAN.fit_progressively over the five
+   stages 8 -> 128 with a CheckpointCallback: finite losses (the labels run
+   to 69,999 and scale the logits), the sample grid; ms a step by stage
+   (the second call's two steps), images/s, peak memory, one profiled
+   128-px step (busy share). (c) A kill mid-save: stage 4's checkpoint
+   removed and a half-written temp directory of it left; a fresh StyleGAN
+   resumes with initial_epoch="auto": it builds stages 3 and 4 only, its
+   restored state equals stage 3's checkpoint bit for bit, the temp
+   directory is swept, stage 4 trains to the end; evaluate writes readable
+   per-class PNGs. A `stylegan_example` JSON line.
+30. examples_torch/style_based_gan/train_digits.py in a subprocess (3
+   epochs of 4 steps, the first 2,000 MNIST-like rows written as PNGs),
+   SIGKILLed after its first epoch line, then run again to its end:
+   history.json's epochs 1..3, none repeated or lost; both kept
+   checkpoints restore bit for bit, the last one's generator equal to
+   gen_disc.npz. Then style_based_gan_trainer.py's tuner demo, 3 trials,
+   each an RBM.fit epoch: kernel #1 launches 3 times (its count set to 0
+   just before).
 
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
@@ -323,12 +365,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import itertools
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -341,12 +385,20 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
+from examples_torch import common
+from examples_torch.autoencoder import autoencoder_mnist
 from examples_torch.rbm import dbn_mnist, rbm_softmax_mnist
-from ku_torch.backprop import GAN, STYLE_GAN_SOFTPLUS_INVERSE_R1_GP
+from examples_torch.style_based_gan import style_based_gan as sg_example
+from examples_torch.style_based_gan import style_based_gan_trainer as sg_tuner
+from examples_torch.style_based_gan import train_digits
+from ku_torch.backprop import GAN, STYLE_GAN_SOFTPLUS_INVERSE_R1_GP, make_autoencoder_from_encoder
 from ku_torch.core.config import load_config
 from ku_torch.dist import make_mesh
 from ku_torch.ebm import DBN, RBM
-from ku_torch.engine_ext import Trainer, adam
+from ku_torch.engine_ext import Trainer, adam, spec
+from ku_torch.image_utils import read_png
+from ku_torch.io import CheckpointManager
+from ku_torch.io.checkpoint import packed, trees_equal
 from ku_torch.kernels import _build, cd_gibbs, cd_gibbs_dp
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
@@ -354,7 +406,14 @@ from ku_torch.kernels import sparse_attention as sa
 from ku_torch.loss_ext import gradient_penalty, r1_penalty
 from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator
 from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
-from ku_torch.utility import _flatten, state_dict_from_tree, tree_from_state_dict
+from ku_torch.utility import (
+    _flatten,
+    load_weights,
+    state_dict_from_tree,
+    tree_from_state_dict,
+    variables_from_module,
+)
+from ku_torch.utils import Callback, CheckpointCallback
 
 DECODE_KERNELS = (da.decode_attention_cuda, da.decode_attention_paged_cuda)
 BWD_KERNELS = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
@@ -3359,18 +3418,18 @@ def stylegan_path(dev, name):
 # ---------------------------------------------------------------------------
 
 
-def gan_batches(seed, groups, b, labels=GAN_LABELS):
+def gan_batches(seed, groups, b, labels=GAN_LABELS, conf=GAN_CONF):
     """`groups` steps' inputs, K + 1 batches each, drawn in the order
     benchmarks/stylegan_lane_packing.py's `batches_stacked` draws them
     (:64-79): the labels (in [labels[0], labels[1]), bench.py's all the
-    classes), the images, z1, z2."""
+    classes), the images, z1, z2; at `conf`'s resolution and latent width."""
     rng = np.random.default_rng(seed)
     shape = (groups, GAN_K + 1, b)
     labels = rng.integers(*labels, size=shape + (1,))
-    res = GAN_CONF["resolution"]
+    res = conf["resolution"]
     x = rng.normal(size=shape + (res, res, 3)).astype(np.float32)
-    z1 = rng.normal(size=shape + (GAN_CONF["latent_dim"],)).astype(np.float32)
-    z2 = rng.normal(size=shape + (GAN_CONF["latent_dim"],)).astype(np.float32)
+    z1 = rng.normal(size=shape + (conf["latent_dim"],)).astype(np.float32)
+    z2 = rng.normal(size=shape + (conf["latent_dim"],)).astype(np.float32)
     return [[{"x": x[s, i], "z": (z1[s, i], labels[s, i], z2[s, i]),
               "label": labels[s, i].astype(np.float32)} for i in range(GAN_K + 1)]
             for s in range(groups)]
@@ -3385,12 +3444,12 @@ def gan_on(batch, dev, dtype=torch.float32):
 
 
 def gan_engine(gen_weights, disc_weights, dev, conf, hps=None, dtype=torch.float32,
-               compute=None):
+               compute=None, disc_conf=GAN_DISC):
     """The engine over the StyleGAN pair loaded from the weights; the
     parameters in `dtype`, the compute in `compute` (bf16) where given."""
     kw = {"dtype": compute} if compute is not None else {}
     gen = load_stylegan(StyleGANGenerator, conf, gen_weights, dev, **kw).to(dtype)
-    disc = load_stylegan(StyleGANDiscriminator, GAN_DISC, disc_weights, dev, **kw).to(dtype)
+    disc = load_stylegan(StyleGANDiscriminator, disc_conf, disc_weights, dev, **kw).to(dtype)
     engine_conf = dict(GAN_ENGINE, hps=dict(GAN_ENGINE["hps"], **(hps or {})))
     engine = GAN(engine_conf, gen, disc).compose_gan_with_mode().compile()
     engine.init_state(seed=27)
@@ -3506,12 +3565,15 @@ def he_scaled(cls, conf, weights, dev, *inputs):
     return tree_from_state_dict(params), weights[1]
 
 
-def gan_check(dev, gen_weights, disc_weights):
+def gan_check(dev, gen_weights, disc_weights, conf=GAN_CONF, disc_conf=GAN_DISC,
+              ref_dev=None, what="bench.py's conf"):
     """Phase 27 (a): one f32 train_step (TF32 off, mixing off, every noise
-    weight 0) against the same step in float64 on the card, taken piece by
-    piece with torch's own convolutions (cuDNN's float64 ones took most of
-    the check's time), same batches (labels in GAN_CHECK_LABELS, so that no
-    loss saturates) and weights (he_scaled, so that no gradient vanishes).
+    weight 0) against the same step in float64 on `ref_dev` (the card
+    unless given; there with torch's own convolutions, cuDNN's float64 ones
+    took most of the check's time), taken piece by piece, same batches
+    (labels in GAN_CHECK_LABELS, so that no loss saturates) and weights
+    (he_scaled, so that no gradient vanishes). Phase 29 runs it at the
+    example's conf with the reference on the CPU.
 
     - Each loss within loss_tolerance, and above 1e-3 (out of saturation,
       where its gradient carries the check).
@@ -3527,27 +3589,31 @@ def gan_check(dev, gen_weights, disc_weights):
       magnitude. A skipped update or one of the wrong sign misses by about
       lr. The noise weights move by about +-lr (their gradient is the
       noise's), held to |w| <= lr."""
-    conf = dict(GAN_CONF, mixing_prob=None)
-    batches = gan_batches(0, 1, GAN_CHECK_B, GAN_CHECK_LABELS)[0]
+    conf = dict(conf, mixing_prob=None)
+    ref_dev = ref_dev or dev
+    cpu = torch.device("cpu")
+    batches = gan_batches(0, 1, GAN_CHECK_B, GAN_CHECK_LABELS, conf)[0]
     one = gan_on(batches[0], dev)
     params, stats = he_scaled(StyleGANGenerator, conf, gen_weights, dev, *one["z"])
     params = tree_from_state_dict({k: (np.zeros_like(v) if k.endswith("noise_weight") else v)
                                    for k, v in _flatten(params).items()})
-    disc_weights = he_scaled(StyleGANDiscriminator, GAN_DISC, disc_weights, dev, one["x"],
+    disc_weights = he_scaled(StyleGANDiscriminator, disc_conf, disc_weights, dev, one["x"],
                              one["label"])
     f32, f64 = torch.float32, torch.float64
 
     pieces = {}
-    for dtype in (f32, f64):
-        engine = gan_engine((params, stats), disc_weights, dev, conf, dtype=dtype)
-        before = {side: {n: p.detach().clone() for n, p in getattr(engine, side)
+    for dtype, on in ((f32, dev), (f64, ref_dev)):
+        engine = gan_engine((params, stats), disc_weights, on, conf, dtype=dtype,
+                            disc_conf=disc_conf)
+        before = {side: {n: p.detach().to(cpu, copy=True) for n, p in getattr(engine, side)
                          .named_parameters()} for side in ("disc", "gen")}
         torch.backends.cudnn.enabled = dtype == f32
         try:
-            pieces[dtype] = (before, engine, *gan_pieces(engine, [gan_on(b, dev, dtype)
-                                                                    for b in batches]))
+            losses, tols, grads = gan_pieces(engine, [gan_on(b, on, dtype) for b in batches])
         finally:
             torch.backends.cudnn.enabled = True
+        grads = [{n: g.detach().cpu() for n, g in update.items()} for update in grads]
+        pieces[dtype] = (before, engine, losses.cpu(), tols, grads)
     before, ref, l64, tols, grads64 = pieces[f64]
     grads32 = pieces[f32][4]
     del pieces
@@ -3563,10 +3629,11 @@ def gan_check(dev, gen_weights, disc_weights):
                   f"float64 {err:.3e} > {delta[name]:.3e}")
             worst_grad = max(worst_grad, (err / max(delta[name], 1e-300), f"{i} {name}"))
 
-    engine = gan_engine((params, stats), disc_weights, dev, conf, dtype=f32)
+    engine = gan_engine((params, stats), disc_weights, dev, conf, dtype=f32,
+                        disc_conf=disc_conf)
     d, g_loss = engine.train_step([gan_on(b, dev, f32) for b in batches], GAN_K)
     torch.cuda.synchronize()
-    l32 = torch.cat([d, g_loss[None]])
+    l32 = torch.cat([d, g_loss[None]]).cpu()
     mm_err = rel_err(engine.gen.truncation.moving_mean, ref.gen.truncation.moving_mean)
     check(mm_err <= GAN_REL, f"GAN step moving mean: f32 against float64 {mm_err:.3e}")
     loss_ratios = [abs(float(a) - float(b)) / t for a, b, t in zip(l32, l64, tols)]
@@ -3577,15 +3644,16 @@ def gan_check(dev, gen_weights, disc_weights):
     updates = {"disc": grads64[:GAN_K], "gen": grads64[GAN_K:]}
     for side in ("disc", "gen"):
         lr, n = GAN_LR[side], len(updates[side])
-        got = dict(getattr(engine, side).named_parameters())
+        got = {n: p.detach().cpu() for n, p in getattr(engine, side).named_parameters()}
         for name, want in getattr(ref, side).named_parameters():
+            want = want.detach().cpu()
             if name.endswith("noise_weight"):
-                check(float(got[name].detach().abs().max()) <= lr * (1 + 1e-5)
+                check(float(got[name].abs().max()) <= lr * (1 + 1e-5)
                       and float(want.abs().max()) <= lr * (1 + 1e-9), f"{name} moved past lr")
                 continue
             start = before[side][name]
-            want = want.detach() - start
-            err = ((got[name].detach().double() - start) - want).abs()
+            want = want - start
+            err = ((got[name].double() - start) - want).abs()
             tol = (GAN_REL * float(want.abs().max())
                    + adam_spread([g[name] for g in updates[side]],
                                  [dl[name] for dl in (deltas[:GAN_K] if side == "disc"
@@ -3595,9 +3663,10 @@ def gan_check(dev, gen_weights, disc_weights):
             check(ratio <= 1.0, f"GAN step {side} {name}: change f32 against float64 "
                   f"{float(err.max()):.3e}, {ratio:.3f} of its tolerance")
             worst = max(worst, (ratio, f"{side} {name}"))
-    log(f"GAN step at bench.py's conf, batch {GAN_CHECK_B}, labels {GAN_CHECK_LABELS[0]}-"
+    log(f"GAN step at {what}, batch {GAN_CHECK_B}, labels {GAN_CHECK_LABELS[0]}-"
         f"{GAN_CHECK_LABELS[1] - 1}, f32 (TF32 off, no mixing, noise weights 0) against "
-        f"float64 on the card: D losses {l32[:GAN_K].tolist()}, G loss {float(l32[GAN_K]):.6e} "
+        f"float64 on the {'card' if ref_dev.type == 'cuda' else 'CPU'}: D losses "
+        f"{l32[:GAN_K].tolist()}, G loss {float(l32[GAN_K]):.6e} "
         f"(float64 {l64[:GAN_K].tolist()}, {float(l64[GAN_K]):.6e}), each at most "
         f"{max(loss_ratios):.3e} of its tolerance ({', '.join(f'{t:.3e}' for t in tols)}); "
         f"moving mean {mm_err:.3e} of its largest entry (limit {GAN_REL}); gradients at most "
@@ -3717,6 +3786,370 @@ def stylegan_gan(dev, name):
     gan_path(dev, name, gen_weights, disc_weights)
 
 
+# ---------------------------------------------------------------------------
+# The layer-spec engine, the autoencoder and the examples (phases 28-30).
+# ---------------------------------------------------------------------------
+
+# Phase 28: the checks' rows (a strided conv autoencoder at AE_CONV_B
+# images, a dense_bn one at AE_BN_B rows), one SGD step at SPEC_LR each;
+# outputs and batch statistics within SPEC_REL of the float64 ones' largest
+# entry, each parameter's change over the step within SPEC_STEP_REL.
+AE_CONV_B, AE_BN_B, SPEC_LR, SPEC_REL, SPEC_STEP_REL = 16, 128, 0.1, 1e-4, 1e-3
+AE_CONV = (("conv2d", "c0", dict(filters=32, kernel_size=3, strides=2, activation="relu")),
+           ("conv2d", "c1", dict(filters=64, kernel_size=3, strides=2, activation="relu")))
+AE_BN = (("dense_bn", "bn0", dict(units=256, activation="relu")),
+         ("dense_bn", "bn1", dict(units=64, activation="relu")),
+         ("dense", "code", dict(units=32)))
+# Phase 29: style_based_gan_conf.json at full width, cut in scale only:
+# batch_step 64 -> 4 and steps_per_call 32 -> 2 (fit_progressively runs one
+# epoch a stage, for the conf's 12); the f32 check at EX_CHECK_RES px.
+EX_CUTS = {"batch_step": (64, 4), "steps_per_call": (32, 2)}
+EX_CHECK_RES = 16
+# Phase 30: train_digits.py's run (3 epochs of batch_step 4, the first
+# DIGITS_ROWS MNIST-like rows as PNGs) and the tuner's demo.
+DIGITS_EPOCHS, DIGITS_BATCH_STEP, DIGITS_ROWS, TUNER_TRIALS = 3, 4, 2000, 3
+
+
+def mse_rows(y, p):
+    return ((y - p) ** 2).flatten(1).mean(dim=1)
+
+
+def spec_step_check(dev, what, configs, input_shape, rows):
+    """One Trainer(has_batch_stats=True) SGD step of an autoencoder built by
+    reversing `configs`, f32 on the card against the same weights in
+    float64 on the CPU: the step's outputs, the parameters' changes and the
+    batch statistics after it, then the inference outputs."""
+    cpu = torch.device("cpu")
+    specs = tuple(spec(k, n, **c) for k, n, c in configs)
+    ref = make_autoencoder_from_encoder(specs, input_shape, device=cpu, dtype=torch.float64,
+                                        generator=torch.Generator().manual_seed(28))
+    model = copy.deepcopy(ref).to(dev, torch.float32)
+    sgd = functools.partial(torch.optim.SGD, lr=SPEC_LR)
+    x64 = torch.from_numpy(rows).double()
+    x32 = x64.to(dev, torch.float32)
+    before = {n: p.detach().double().clone() for n, p in ref.named_parameters()}
+    worst = {}
+    outs = {}
+    for module, x in ((ref, x64), (model, x32)):
+        trainer = Trainer(module, mse_rows, optimizer=sgd, has_batch_stats=True)
+        loss, y = trainer._train_step(x, x)
+        outs[module is ref] = (loss, y, trainer.predict(x))
+    torch.cuda.synchronize()
+    worst["outputs"] = rel_err(outs[False][1], outs[True][1])
+    worst["inference"] = rel_err(torch.from_numpy(outs[False][2]),
+                                 torch.from_numpy(outs[True][2]))
+    worst["loss"] = abs(float(outs[False][0]) - float(outs[True][0])) / float(outs[True][0])
+    for name, want in ref.named_buffers():
+        worst[f"stat {name}"] = rel_err(dict(model.named_buffers())[name], want)
+    for key, err in worst.items():
+        check(err <= SPEC_REL, f"{what}: {key} f32 on the card against float64 on the CPU "
+              f"{err:.3e} > {SPEC_REL}")
+    out_err = max(worst.values())
+    # Each parameter's change within SPEC_STEP_REL of the float64 change's
+    # largest entry, plus f32's rounding of the update (2^-23 of the
+    # entry). A Dense bias that feeds a BatchNorm has no gradient in exact
+    # arithmetic (BN takes the batch mean out): its float64 change is
+    # rounding, so it is held to 1e-6 of the step's largest change.
+    got = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    changes = {n: p.detach() - before[n] for n, p in ref.named_parameters()}
+    largest = max(float(d.abs().max()) for d in changes.values())
+    step_err, still = 0.0, []
+    for name, want in changes.items():
+        err = (got[name] - before[name] - want).abs()
+        if float(want.abs().max()) <= 1e-9 * largest:
+            still.append(name)
+            check(float(err.max()) <= 1e-6 * largest, f"{what}: {name} has no gradient in "
+                  f"exact arithmetic but moved {float(err.max()):.3e}")
+            continue
+        tol = SPEC_STEP_REL * float(want.abs().max()) + 2.0 ** -23 * before[name].abs()
+        ratio = float((err / tol).max())
+        check(ratio <= 1.0, f"{what}: {name}'s change f32 on the card against float64 on "
+              f"the CPU {float(err.max()):.3e}, {ratio:.3f} of its tolerance")
+        step_err = max(step_err, ratio)
+    log(f"{what}: {' -> '.join(s.kind for s in model.encoder.specs + model.decoder.specs)} on "
+        f"{tuple(input_shape)}, one Trainer(has_batch_stats=True) SGD step (lr {SPEC_LR}), f32 "
+        f"on the card against float64 on the CPU: outputs, loss and batch statistics at most "
+        f"{out_err:.3e} of their largest entry (limit {SPEC_REL}); parameters' changes at most "
+        f"{step_err:.3f} of their tolerance ({SPEC_STEP_REL} of the largest float64 change "
+        f"plus f32's rounding); no gradient in exact arithmetic: {still or 'none'}")
+
+
+def spec_autoencoder(dev, name):
+    """Phase 28."""
+    V, gt = common.mnist_like()
+    X = (V / 255.0).astype(np.float32)
+    spec_step_check(dev, "strided conv autoencoder", AE_CONV, (AE_CONV_B, 28, 28, 1),
+                    X[:AE_CONV_B].reshape(AE_CONV_B, 28, 28, 1))
+    spec_step_check(dev, "dense_bn autoencoder", AE_BN, (AE_BN_B, 784), X[:AE_BN_B])
+    log(f"autoencoder_mnist on {len(V)} MNIST-like rows (examples_torch/common.mnist_like), "
+        f"encoder 784 -> 256 -> 64 -> 32 and its reversal, batch {autoencoder_mnist.BATCH_SIZE}, "
+        "Adam 1e-3:")
+    res = autoencoder_mnist.main(device=dev, V=V, gt=gt, verbose=1)
+    hist = res["history"]
+    check(all(math.isfinite(h) for h in hist) and hist[-1] < hist[0],
+          f"autoencoder_mnist: MSE by epoch {hist}")
+    check(math.isfinite(res["mse"]), f"autoencoder_mnist: reconstruction MSE {res['mse']}")
+    check(res["probe_accuracy"] > 0.5,
+          f"autoencoder_mnist: probe accuracy {res['probe_accuracy']} (10 classes)")
+    ms = res["seconds"] * 1e3 / res["steps"]
+    row = {"epochs": res["epochs"], "steps": res["steps"], "mse_by_epoch": hist,
+           "reconstruction_mse": res["mse"], "probe_accuracy": res["probe_accuracy"],
+           "probe_labels": res["n_labels"], "ms_per_step": ms,
+           "samples_per_s": autoencoder_mnist.BATCH_SIZE / (ms / 1e3), "card": name}
+    log(f"autoencoder_mnist: {res['epochs']} epochs, {res['steps']} steps in "
+        f"{res['seconds']:.3f} s: {ms:.4f} ms a step, {row['samples_per_s']:.1f} samples/s "
+        f"(fit's wall time, f32); MSE by epoch {hist}; probe accuracy "
+        f"{res['probe_accuracy']:.4f} on {len(V) - res['n_labels']} rows")
+    print(json.dumps({"autoencoder_mnist": row}), flush=True)
+
+
+class StageClock(Callback):
+    """Callback: the wall time at each step's end (the engine reads the
+    losses, a host sync, every steps_per_call steps) and each stage's
+    (fit_generator begins anew each stage)."""
+
+    def __init__(self):
+        self.steps, self.stages = {}, {}
+
+    def on_train_begin(self, engine):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def on_train_batch_end(self, engine, step, logs):
+        self.steps.setdefault(len(self.stages), []).append(time.perf_counter())
+
+    def on_epoch_end(self, engine, epoch, logs):
+        torch.cuda.synchronize()
+        self.stages[epoch] = time.perf_counter() - self.t0
+
+
+def count_tensors(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if isinstance(tree, dict):
+        return sum(count_tensors(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_tensors(v) for v in tree)
+    return 0
+
+
+class RecordingCheckpoint(CheckpointCallback):
+    """CheckpointCallback that keeps a CPU copy of what it restored."""
+
+    def maybe_restore(self, engine):
+        step = super().maybe_restore(engine)
+        self.restored = packed(engine.checkpoint_tree()) if step is not None else None
+        return step
+
+
+def stylegan_example(dev, name):
+    """Phase 29."""
+    cpu = torch.device("cpu")
+    conf = load_config(sg_example.CONF_PATH)
+    hps = conf["hps"]
+    for key, (was, now) in EX_CUTS.items():
+        check(hps[key] == was, f"style_based_gan_conf.json {key} {hps[key]}, expected {was}")
+        hps[key] = now
+    check({"lr": GAN_LR["disc"], "beta_1": 0.0, "beta_2": 0.99}.items()
+          <= conf["disc_ext_hps"].items() and conf["gen_disc_hps"]["lr"] == GAN_LR["gen"]
+          and hps["disc_k_step"] == GAN_K, "the conf's Adam / k differ from GAN_ENGINE's")
+    resolutions = conf["nn_arch"]["gen_prog_resolutions"]
+    log(f"style_based_gan_conf.json: 128 px, ch_base {hps['ch_base']}, max_ch "
+        f"{hps['max_ch']}, latent / dlatent / dense1 {conf['map_nn_arch']['latent_dim']}, "
+        f"{conf['map_nn_arch']['num_layers']} mapping layers, "
+        f"{conf['map_nn_arch']['num_classes']} classes, mixing {hps['mixing_prob']}, psi "
+        f"{hps['trunc_psi']}, cutoff {hps['trunc_cutoff']}, batch {hps['batch_size']}, k "
+        f"{hps['disc_k_step']}, softplus-R1 gamma {hps['r_gamma']}, f32; stages "
+        f"{resolutions}; cuts: one epoch a stage (12 in the conf), "
+        + ", ".join(f"{k} {a} -> {b}" for k, (a, b) in EX_CUTS.items()))
+
+    gen_kw, disc_kw = sg_example.module_confs(conf, EX_CHECK_RES)
+    gen_weights = stylegan_weights(StyleGANGenerator(**gen_kw, device=cpu), seed=29)
+    disc_weights = stylegan_weights(StyleGANDiscriminator(**disc_kw, device=cpu), seed=30)
+    gan_check(dev, gen_weights, disc_weights, conf=gen_kw, disc_conf=disc_kw, ref_dev=cpu,
+              what=f"style_based_gan_conf.json's stage 1 ({EX_CHECK_RES} px)")
+    del gen_weights, disc_weights
+    torch.cuda.empty_cache()
+
+    k, b = hps["disc_k_step"], hps["batch_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "ckpt")
+        torch.cuda.reset_peak_memory_stats()
+        gan = sg_example.StyleGAN(copy.deepcopy(conf), device=dev)
+        clock = StageClock()
+        t0 = time.perf_counter()
+        hist = gan.fit_progressively(sample_dir=os.path.join(tmp, "results"), callbacks=[
+            CheckpointCallback(ckdir, max_to_keep=2), clock])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(len(hist) == len(resolutions), f"{len(hist)} stages trained")
+        for stage, h in enumerate(hist):
+            check(all(np.isfinite(v).all() for v in h.values()), f"stage {stage}: {h}")
+        check(read_png(os.path.join(tmp, "results", "progressive_final.png")).shape
+              == (128, 4 * 128, 3), "progressive_final.png")
+        stages = []
+        for stage, res in enumerate(resolutions):
+            t = clock.steps[stage]
+            ms = (t[3] - t[1]) / 2 * 1e3  # the second call's two steps
+            stages.append({"resolution": res, "ms_per_step": ms,
+                           "images_per_s": (k + 1) * b / (ms / 1e3),
+                           "stage_s": clock.stages[stage],
+                           "losses": hist[stage]})
+            log(f"stage {stage} ({res} px): {ms:.3f} ms a step (the second call of "
+                f"{hps['steps_per_call']} steps), {stages[-1]['images_per_s']:.1f} images/s "
+                f"((k + 1) B / step), losses {hist[stage]}")
+
+        check(not os.path.exists(conf["raw_data_path"]), "FFHQ's thumbnails are present")
+        seq = sg_example.TrainingSequenceFFHQ(conf["raw_data_path"], hps, conf["nn_arch"],
+                                              conf["map_nn_arch"])
+        batches = [gan_on(next(seq), dev) for _ in range(k + 1)]
+        step = lambda: gan.train_step(batches, k)  # noqa: E731
+        step()
+        prof_wall, rows, clocks = profiled(step)
+        busy_us = sum(r[0] for r in rows)
+        log_profile("one StyleGAN example step at 128 px, f32", prof_wall, rows, clocks)
+
+        # A kill while stage 4's checkpoint was being written: its step never
+        # published, a half-written temp directory in the folder.
+        mgr = CheckpointManager(ckdir)
+        check(mgr.all_steps() == [len(resolutions) - 2, len(resolutions) - 1],
+              f"checkpoints {mgr.all_steps()}")
+        last = len(resolutions) - 1
+        saved = mgr.read(last - 1)
+        shutil.rmtree(os.path.join(ckdir, str(last)))
+        debris = os.path.join(ckdir, f".tmp-{last}-{os.getpid()}-killed")
+        os.makedirs(debris)
+        with open(os.path.join(ckdir, str(last - 1), "state.pt"), "rb") as f:
+            half = f.read()
+        with open(os.path.join(debris, "state.pt"), "wb") as f:
+            f.write(half[:len(half) // 2])
+        del gan, batches, step, half
+        torch.cuda.empty_cache()
+
+        fresh = sg_example.StyleGAN(copy.deepcopy(conf), device=dev, init_seed=1)
+        factory, built = fresh.stage_factory, []
+
+        def counting(resolutions_):
+            make = factory(resolutions_)
+            return lambda st, g, d: (built.append(st), make(st, g, d))[1]
+
+        fresh.stage_factory = counting
+        rec = RecordingCheckpoint(ckdir, max_to_keep=2)
+        t0 = time.perf_counter()
+        hist2 = fresh.fit_progressively(sample_dir=os.path.join(tmp, "resumed"),
+                                        callbacks=[rec], initial_epoch="auto")
+        resume_s = time.perf_counter() - t0
+        check(built == [last - 1, last], f"the resumed run built stages {built}")
+        check(rec.restored is not None and trees_equal(rec.restored, saved),
+              "the restored state differs from the saved one")
+        check(not os.path.exists(debris), "the half-written checkpoint was not swept")
+        check(len(hist2) == 1 and all(np.isfinite(v).all() for v in hist2[0].values()),
+              f"the resumed run's history {hist2}")
+        check(mgr.all_steps() == [last - 1, last], f"checkpoints after resume {mgr.all_steps()}")
+        n_tensors = count_tensors(saved)
+        del saved, rec.restored
+        evald = os.path.join(tmp, "eval")
+        classes = (0, 1, conf["map_nn_arch"]["num_classes"] - 1)
+        fresh.evaluate(result_dir=evald, num_per_class=2, classes=classes)
+        for c in classes:
+            png = read_png(os.path.join(evald, f"class_{c}.png"))
+            imgs = np.load(os.path.join(evald, f"class_{c}.npy"))
+            check(png.shape == (128, 256, 3) and imgs.shape == (2, 128, 128, 3)
+                  and np.isfinite(imgs).all(), f"evaluate's class {c}: {png.shape}")
+        log(f"simulated kill mid-save of stage {last}: a fresh StyleGAN resumed with "
+            f"initial_epoch='auto' at stage {last} (built stages {built}), its restored state "
+            f"({n_tensors} tensors: parameters, Adam moments and steps, the draws' generator, "
+            f"the moving mean) equal to stage {last - 1}'s checkpoint bit for bit, the temp "
+            f"directory swept, stage {last} trained again in {resume_s:.3f} s "
+            f"(losses {hist2[0]}); evaluate wrote readable PNGs for classes {classes}")
+    row = {"card": name, "stages": stages, "fit_progressively_s": wall,
+           "peak_memory_gib": peak / 2 ** 30, "profiled_wall_ms": prof_wall * 1e3,
+           "device_ms": busy_us / 1e3, "busy_share": busy_us / (prof_wall * 1e6),
+           "device_ops": sum(r[1] for r in rows), "resume_s": resume_s}
+    log(f"fit_progressively over {len(resolutions)} stages in {wall:.3f} s (builds, "
+        f"checkpoints and sample grids included); peak memory {row['peak_memory_gib']:.3f} "
+        f"GiB; one 128-px step profiled: {busy_us / 1e3:.3f} ms of device time in "
+        f"{prof_wall * 1e3:.3f} ms, busy {row['busy_share']:.3f}")
+    print(json.dumps({"stylegan_example": row}), flush=True)
+
+
+def digits_and_tuner(dev, name):
+    """Phase 30."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                          "style_based_gan", "train_digits.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        run, data = os.path.join(tmp, "run"), os.path.join(tmp, "data")
+        cmd = [sys.executable, script, str(DIGITS_EPOCHS), str(DIGITS_BATCH_STEP),
+               "--run-dir", run, "--data-dir", data, "--rows", str(DIGITS_ROWS)]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        killed = False
+        try:
+            for line in proc.stdout:
+                log(f"  train_digits (first run): {line.rstrip()}")
+                if line.startswith(f"[train_digits] epoch 1/{DIGITS_EPOCHS}"):
+                    proc.send_signal(signal.SIGKILL)
+                    killed = True
+                    break
+        finally:
+            if not killed:
+                proc.kill()
+            proc.wait(timeout=60)
+        check(killed and proc.returncode == -signal.SIGKILL,
+              f"train_digits was not killed after its first epoch (rc {proc.returncode})")
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        second_s = time.perf_counter() - t0
+        for line in done.stdout.splitlines()[-8:]:
+            log(f"  train_digits (resumed): {line}")
+        check(done.returncode == 0, f"train_digits resumed: rc {done.returncode}\n"
+              f"{done.stdout[-2000:]}{done.stderr[-4000:]}")
+        with open(os.path.join(run, "history.json")) as f:
+            history = json.load(f)
+        check(history["epoch"] == list(range(1, DIGITS_EPOCHS + 1)),
+              f"history.json's epochs {history['epoch']}")
+        mgr = CheckpointManager(os.path.join(run, "ckpt"))
+        check(mgr.all_steps() == [DIGITS_EPOCHS - 2, DIGITS_EPOCHS - 1],
+              f"train_digits' checkpoints {mgr.all_steps()}")
+        digits_conf = copy.deepcopy(train_digits.CONF)
+        digits_conf["raw_data_path"] = data
+        engine = sg_example.StyleGAN(digits_conf, device=dev, init_seed=3)
+        engine.compile().init_state()
+        for step in mgr.all_steps():
+            tree = engine.checkpoint_tree()
+            mgr.restore(step, template=tree)
+            check(trees_equal(packed(tree), mgr.read(step)), f"checkpoint {step} restore")
+        final = _flatten(load_weights(os.path.join(run, "gen_disc"))["params"])
+        got = _flatten(variables_from_module(engine.gen)["params"])
+        check(got.keys() == final.keys()
+              and all(np.array_equal(got[k], v) for k, v in final.items()),
+              "the last checkpoint's generator differs from gen_disc.npz")
+        check(read_png(os.path.join(run, "samples", f"epoch_{DIGITS_EPOCHS:04d}.png")).shape
+              == (32, 20 * 32, 3), "the last sample grid")
+        log(f"train_digits.py ({DIGITS_EPOCHS} epochs of {DIGITS_BATCH_STEP} steps, the first "
+            f"{DIGITS_ROWS} MNIST-like rows as PNGs): SIGKILLed after its first epoch line "
+            f"({first_s:.3f} s), run again to the end ({second_s:.3f} s); history.json's epochs "
+            f"{history['epoch']}, losses d {history['disc_ext_loss']} g "
+            f"{history['gen_disc_loss']}; checkpoints {mgr.all_steps()} restore bit for bit, "
+            f"the last one's generator equal to gen_disc.npz")
+
+    V, _ = common.mnist_like()
+    cd_gibbs.cd_train_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best_hps, best_score = sg_tuner.main(device="cuda", n_trials=TUNER_TRIALS, V=V)
+    torch.cuda.synchronize()
+    launches = cd_gibbs.cd_train_cuda.launches
+    check(launches == TUNER_TRIALS, f"the tuner launched kernel #1 {launches} times, "
+          f"want {TUNER_TRIALS}")
+    check(math.isfinite(best_score), f"the tuner's best score {best_score}")
+    log(f"style_based_gan_trainer demo: {TUNER_TRIALS} trials, each one RBM.fit epoch on "
+        f"1,024 rows, in {time.perf_counter() - t0:.3f} s; kernel #1 launches {launches}; best "
+        f"{best_hps} (score {best_score:.4f})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3769,6 +4202,10 @@ def main() -> int:
     rbm_examples(dev)
     stylegan_path(dev, name)
     stylegan_gan(dev, name)
+    torch.cuda.empty_cache()
+    spec_autoencoder(dev, name)
+    stylegan_example(dev, name)
+    digits_and_tuner(dev, name)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

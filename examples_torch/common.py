@@ -3,8 +3,9 @@
 Port of ``examples/common.py``. ``load_mnist`` keeps the same order of
 sources: Kaggle ``train.csv`` in ``data_dir``, then a cached Keras
 ``~/.keras/datasets/mnist.npz``, then sklearn's bundled 8×8 digits upscaled
-to 28×28 by :func:`resize_linear` (``jax.image.resize``'s "linear" when
-upsampling: half-pixel centres, the edges clamped).
+to 28×28 by :func:`resize_linear` (``ku_torch.image_utils.resize_batch``,
+``jax.image.resize``'s "linear"). Where sklearn is absent too, it says so
+and returns :func:`mnist_like`'s seeded rows.
 """
 
 from __future__ import annotations
@@ -18,17 +19,31 @@ if _REPO_ROOT not in sys.path:
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from torch.nn import functional as F  # noqa: E402
 
 KU_EXAMPLES = os.path.join(_REPO_ROOT, "examples")
 
 
 def resize_linear(images: np.ndarray, size) -> np.ndarray:
     """(N, h, w) → (N, *size) by bilinear interpolation, in float32."""
-    t = torch.from_numpy(np.ascontiguousarray(images, np.float32))[:, None]
-    out = F.interpolate(t, size=tuple(size), mode="bilinear", align_corners=False,
-                        antialias=False)
-    return out[:, 0].numpy()
+    from ku_torch.image_utils import resize_batch
+
+    t = torch.from_numpy(np.ascontiguousarray(images, np.float32))[..., None]
+    return resize_batch(t, (size[1], size[0]))[..., 0].numpy()
+
+
+def mnist_like(n: int = 60032, seed: int = 0):
+    """Seeded MNIST-like rows, (V, labels): 28×28 binary images in {0, 255}
+    (float32, about 13 % of pixels on, as in MNIST), each drawn pixel by
+    pixel from its class's smooth prototype, so that the labels (int64,
+    0-9) can be learned. For machines with neither MNIST nor sklearn."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(size=(10, 7, 7)).astype(np.float32)
+    protos = resize_linear(coarse, (28, 28)).reshape(10, 784)
+    # A logistic of each prototype, shifted so that 13 % of pixels are on.
+    probs = 1.0 / (1.0 + np.exp(-(3.0 * protos - 3.0)))
+    labels = rng.integers(0, 10, size=n)
+    V = (rng.random((n, 784), dtype=np.float32) < probs[labels]).astype(np.float32) * 255.0
+    return V, labels.astype(np.int64)
 
 
 def load_mnist(flatten: bool = True, data_dir: str = "."):
@@ -50,7 +65,12 @@ def load_mnist(flatten: bool = True, data_dir: str = "."):
         V = V.reshape(-1, 784) if flatten else V[..., None]
         return V, y.astype(np.int64)
 
-    from sklearn.datasets import load_digits
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError:
+        print("[common] no MNIST files and no sklearn: seeded MNIST-like rows (mnist_like)")
+        V, labels = mnist_like()
+        return (V if flatten else V.reshape(-1, 28, 28, 1)), labels
 
     d = load_digits()
     imgs = d.images.astype(np.float32) / 16.0 * 255.0  # (N, 8, 8) in [0, 255]

@@ -14,9 +14,15 @@ per-token reads go through hand-written kernels for flash attention and
 flash decoding, dense and paged (:mod:`ku_torch.kernels.flash_attention`,
 :mod:`ku_torch.kernels.decode_attention`), and whose ``use_flash``
 attention trains through hand-written flash backward kernels; ``ku``'s
-``Trainer`` (:mod:`ku_torch.engine_ext`); the StyleGAN generator and
+``Trainer``, with batch statistics, the layer specs and ``Stack``, and the
+progressive surgery on them (:mod:`ku_torch.engine_ext`); the Dense + BN
+composite and the GCN layer; the StyleGAN generator and
 discriminator (:mod:`ku_torch.models`), on cuDNN's convolutions, and the GAN
-engine that trains them in five composing modes (:mod:`ku_torch.backprop`);
+engine that trains them in five composing modes, and the autoencoders made
+by reversing an encoder (:mod:`ku_torch.backprop`); callbacks and tracing
+(:mod:`ku_torch.utils`), checkpoints of whole train states
+(:mod:`ku_torch.io`), the image utilities and a PNG codec
+(:mod:`ku_torch.image_utils`);
 the GAN losses and gradient penalties (:mod:`ku_torch.loss_ext`), ``MeanIoUExt``
 (:mod:`ku_torch.metrics_ext`) and ``he_normal``
 (:mod:`ku_torch.initializers_ext`); the JSON config contract,
@@ -83,11 +89,14 @@ from ku_torch import backprop as backprop
 from ku_torch import dist as dist
 from ku_torch import ebm as ebm
 from ku_torch import engine_ext as engine_ext
+from ku_torch import image_utils as image_utils
 from ku_torch import initializers_ext as initializers_ext
+from ku_torch import io as io
 from ku_torch import kernels as kernels
 from ku_torch import loss_ext as loss_ext
 from ku_torch import metrics_ext as metrics_ext
 from ku_torch import models as models
 from ku_torch import nn as nn
+from ku_torch import utils as utils
 
 __version__ = "0.1.0"

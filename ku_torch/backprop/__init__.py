@@ -1,5 +1,5 @@
 """Backprop-based learning engines (port of ``ku.backprop``): the GAN
-engine."""
+engine and the autoencoders built by encoder reversal."""
 
 from ku_torch.backprop.gan import (
     STYLE_GAN_REGULAR,
@@ -17,4 +17,14 @@ from ku_torch.backprop.gan import (
     get_loss_conf,
     state_from_ku,
     state_to_ku,
+)
+from ku_torch.backprop.autoencoder import (
+    reverse_groups,
+    reverse_model,
+    reverse_specs,
+    make_decoder_from_encoder,
+    make_autoencoder_from_encoder,
+    make_autoencoder_with_sym_sc,
+    Autoencoder,
+    SymSkipAutoencoder,
 )

@@ -498,6 +498,16 @@ class AbstractGAN:
             cb.on_train_end(self, history)
         return history
 
+    def checkpoint_tree(self):
+        """What a checkpoint of the engine holds (``ku_torch.utils
+        .CheckpointCallback``): both train states, so the parameters, the Adam
+        moments, the steps and the draws' generator, and the modules' buffers
+        (``ku``'s ``gen_stats`` / ``disc_stats``). Restoring into it writes the
+        live tensors in place."""
+        return {"state": self.state,
+                "buffers": {"gen": dict(self.gen.named_buffers()),
+                            "disc": dict(self.disc.named_buffers())}}
+
     def _param_trees(self):
         return {"gen_params": variables_from_module(self.gen)["params"],
                 "disc_params": variables_from_module(self.disc)["params"]}

@@ -1,6 +1,7 @@
-"""Trainer: ``ku``'s train / test loop for a torch module.
+"""Model-engine extensions: ``ku``'s train / test loop for a torch module,
+and the structural surgery on spec lists.
 
-Port of ``ku/engine_ext/training.py``'s ``Trainer`` (:147-302):
+Port of ``ku/engine_ext/training.py``. The ``Trainer``:
 
 - ``loss_fn(y_true, y_pred)`` returns a per-example loss; a step minimises
   its mean. Training calls the module with ``deterministic=False``; testing
@@ -23,23 +24,150 @@ Port of ``ku/engine_ext/training.py``'s ``Trainer`` (:147-302):
   rngs, each step seeds the global RNG, forked for the step, with a value
   drawn from a ``torch.Generator`` seeded with ``seed``; a run is
   reproducible from ``seed``. The draws cannot match JAX's.
-- ``has_batch_stats=True`` raises ``NotImplementedError``: no module of the
-  port keeps batch statistics yet.
+- Batch statistics live in the module's buffers (``BatchNorm``'s ``mean``
+  / ``var``): a train step's forward, ``deterministic=False``, updates
+  them in place, and ``test_step`` / ``predict`` read them. So
+  ``has_batch_stats=True`` needs nothing more than ``ku``'s contract says;
+  the flag is kept for it.
 
-Not in this port yet (they need ``Stack`` over ``ku/nn/{dense_composite,
-gnn}.py``): ``glue_layers``, ``create_prog_specs``, ``select_params``,
-``merge_params``, ``train_on_batch_{forward,backward}_prog_model`` and
-``ku/engine_ext/spec.py``.
+The structural surgery (``ku``'s ``glue_layers``, ``create_prog_specs``,
+``select_params`` / ``merge_params``, ``train_on_batch_{forward,backward}
+_prog_model``) works on :class:`~ku_torch.engine_ext.spec.LayerSpec` lists
+and on parameter trees, nested dicts of tensors keyed by layer name (a
+:class:`~ku_torch.engine_ext.spec.Stack`'s :func:`param_tree`, or ``ku``'s
+params through ``ku_torch.utility.params_from_numpy``): a truncated model
+shares the full model's weights by name, so selection is a dict filter.
+The progressive step is plain SGD, ``p − lr·g`` on the mean loss, as
+``ku``'s is.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ku_torch.engine_ext.spec import LayerSpec, Stack
+
+PROGRESSIVE_MODE_FORWARD = 0
+PROGRESSIVE_MODE_BACKWARD = 1
+
+
+# -- structural surgery on spec lists ---------------------------------------
+
+
+def _index_of(specs: Sequence[LayerSpec], name: str) -> int:
+    for i, s in enumerate(specs):
+        if s.name == name:
+            return i
+    raise ValueError(f"layer {name!r} not found")
+
+
+def glue_layers(specs: Sequence[LayerSpec], new_specs: Sequence[LayerSpec],
+                first_layer_name: Optional[str] = None,
+                last_layer_name: Optional[str] = None) -> Tuple[LayerSpec, ...]:
+    """Splice ``new_specs`` into ``specs``: head (``first_layer_name`` None:
+    they feed the model from ``last_layer_name`` on), tail
+    (``last_layer_name`` None: appended after ``first_layer_name``) or
+    middle (both: everything strictly between them replaced)."""
+    specs = list(specs)
+    if first_layer_name is None and last_layer_name is None:
+        raise ValueError("first_layer_name or last_layer_name must be given")
+    if first_layer_name is None:
+        return tuple(new_specs) + tuple(specs[_index_of(specs, last_layer_name):])
+    if last_layer_name is None:
+        return tuple(specs[: _index_of(specs, first_layer_name) + 1]) + tuple(new_specs)
+    return (tuple(specs[: _index_of(specs, first_layer_name) + 1]) + tuple(new_specs)
+            + tuple(specs[_index_of(specs, last_layer_name):]))
+
+
+def create_prog_specs(specs: Sequence[LayerSpec], mode: int, prog_depth: int,
+                      fixed_layer_names: Sequence[str] = ()) -> Tuple[LayerSpec, ...]:
+    """The truncated spec list for progressive training: FORWARD keeps layers
+    [0, prog_depth) plus the fixed layers, BACKWARD the fixed layers plus
+    [prog_depth, end), in their original order."""
+    fixed = set(fixed_layer_names)
+    if mode == PROGRESSIVE_MODE_FORWARD:
+        return tuple(s for i, s in enumerate(specs) if i < prog_depth or s.name in fixed)
+    if mode == PROGRESSIVE_MODE_BACKWARD:
+        return tuple(s for i, s in enumerate(specs) if i >= prog_depth or s.name in fixed)
+    raise ValueError("mode is not valid.")
+
+
+def param_tree(module: torch.nn.Module):
+    """A module's parameters as a nested dict keyed by the parts of their
+    names (``{"enc1": {"kernel": p, "bias": p}}``); the tensors are the
+    module's own."""
+    return _nest(dict(module.named_parameters()))
+
+
+def select_params(full_params, specs: Sequence[LayerSpec]):
+    """The sub-tree of a Stack's parameters that a truncated spec list uses."""
+    names = {s.name for s in specs}
+    return {k: v for k, v in full_params.items() if k in names}
+
+
+def merge_params(full_params, partial_params):
+    """A truncated model's trained parameters written back into the full
+    tree (a new dict; the inputs are left as they are)."""
+    out = dict(full_params)
+    out.update(partial_params)
+    return out
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, Mapping):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _nest(flat):
+    tree = {}
+    for name, v in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def _train_on_batch_prog(full_params, x, y, loss_fn, sub_specs, lr):
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    sub = Stack(sub_specs, tuple(x.shape), device="meta")
+    flat = {k: torch.as_tensor(v).detach().requires_grad_(True)
+            for k, v in _flat(select_params(full_params, sub_specs)).items()}
+    loss = loss_fn(y, torch.func.functional_call(sub, flat, (x,))).mean()
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    new_sub = {k: (p - lr * g).detach() for (k, p), g in zip(flat.items(), grads)}
+    return merge_params(full_params, _nest(new_sub)), float(loss.detach())
+
+
+def train_on_batch_forward_prog_model(specs, full_params, x, y, loss_fn, prog_depth: int,
+                                      fixed_layer_names: Sequence[str] = (),
+                                      lr: float = 1e-3):
+    """One SGD step on the FORWARD-truncated sub-model, weights shared with
+    the full model by name. Returns (the updated full parameter tree, the
+    loss); the tree's other entries are the input's own tensors."""
+    return _train_on_batch_prog(full_params, x, y, loss_fn, create_prog_specs(
+        specs, PROGRESSIVE_MODE_FORWARD, prog_depth, fixed_layer_names), lr)
+
+
+def train_on_batch_backward_prog_model(specs, full_params, x, y, loss_fn, prog_depth: int,
+                                       fixed_layer_names: Sequence[str] = (),
+                                       lr: float = 1e-3):
+    """The BACKWARD-truncated counterpart."""
+    return _train_on_batch_prog(full_params, x, y, loss_fn, create_prog_specs(
+        specs, PROGRESSIVE_MODE_BACKWARD, prog_depth, fixed_layer_names), lr)
+
+
+# -- Trainer -------------------------------------------------------------------
 
 
 def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -70,10 +198,7 @@ class Trainer:
                  optimizer: Optional[Callable] = None,
                  metrics: Sequence[Callable] = (), seed: int = 0,
                  has_batch_stats: bool = False, rng_streams: Sequence[str] = ()):
-        if has_batch_stats:
-            raise NotImplementedError(
-                "has_batch_stats is not ported to ku_torch yet: no module of "
-                "the port keeps batch statistics")
+        self.has_batch_stats = has_batch_stats
         self.module = module
         self.loss_fn = loss_fn
         self.make_optimizer = optimizer if optimizer is not None else adam(1e-3)

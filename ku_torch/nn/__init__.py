@@ -1,4 +1,5 @@
-"""The layer zoo (port of ``ku.nn``): the StyleGAN layers, attention,
+"""The layer zoo (port of ``ku.nn``): the StyleGAN layers, the Dense + BN
+composite, the GCN layer, attention,
 transformer blocks, position encodings and serving; only what is ported is
 exported."""
 
@@ -15,7 +16,10 @@ from ku_torch.nn.convolution import (
     DepthwiseConv3D,
     SeparableConv3D,
     conv_nd,
+    conv_transpose_nd,
 )
+from ku_torch.nn.dense_composite import BatchNorm, DenseBatchNormalization
+from ku_torch.nn.gnn import GraphConvolutionNetwork
 from ku_torch.nn.normalization import AdaptiveIN, AdaptiveINWithStyle, PixelNorm
 from ku_torch.nn.style import (
     StyleMixingRegularization,

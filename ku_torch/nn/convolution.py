@@ -218,25 +218,35 @@ def _conv_transpose_padding(k: int, s: int, padding: str):
     return pad_a, pad_len - pad_a
 
 
-def conv_transpose2d(x, kernel, strides, padding: str):
-    """``lax.conv_transpose(x, kernel, strides, padding, NHWC / HWIO)`` with
-    ``transpose_kernel=False``: out[y] = Σ_k x_dilated_padded[y + k] ·
-    kernel[k], the kernel as stored (not flipped), the dilated input padded
-    by ``_conv_transpose_padding`` ("SAME" or "VALID")."""
-    ksize = kernel.shape[:2]
-    strides = normalize_tuple(strides, 2)
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+def conv_transpose_nd(x, kernel, strides, padding: str, rank: int):
+    """``lax.conv_transpose(x, kernel, strides, padding)`` over channels-last
+    x and a (*spatial, in, out) kernel, with ``transpose_kernel=False`` (flax's
+    ``nn.ConvTranspose``): out[y] = Σ_k x_dilated_padded[y + k] · kernel[k],
+    the kernel as stored (not flipped), the dilated input padded by
+    ``_conv_transpose_padding`` ("SAME" or "VALID")."""
+    ksize = kernel.shape[:rank]
+    strides = normalize_tuple(strides, rank)
     pads = [_conv_transpose_padding(k, s, padding.upper()) for k, s in zip(ksize, strides)]
-    # conv_transpose2d scatters x[i] · w[k'] to i·s + k' − p: with w the
+    # conv_transpose scatters x[i] · w[k'] to i·s + k' − p: with w the
     # kernel flipped, k' = K − 1 − k, that is out[y] above with p = K − 1 − pad.
-    w = kernel.flip(0, 1).permute(2, 3, 0, 1)  # (in, out, kh, kw)
+    w = kernel.flip(tuple(range(rank))).permute(rank, rank + 1, *range(rank))
     torch_pads = [(k - 1 - lo, k - 1 - hi) for k, (lo, hi) in zip(ksize, pads)]
     if all(lo == hi and lo >= 0 for lo, hi in torch_pads):
-        y = F.conv_transpose2d(to_channels_first(x), w, stride=strides,
-                               padding=tuple(lo for lo, _ in torch_pads))
+        y = _CONV_T[rank](to_channels_first(x), w, stride=strides,
+                          padding=tuple(lo for lo, _ in torch_pads))
         return to_channels_last(y)
-    # An odd k + s − 2 pads one side more: crop the full output to it.
-    y = to_channels_last(F.conv_transpose2d(to_channels_first(x), w, stride=strides))
+    # An odd k + s − 2 pads one side more: crop the full output to it (or
+    # pad it, where lax pads past the full output).
+    y = to_channels_last(_CONV_T[rank](to_channels_first(x), w, stride=strides))
     return F.pad(y, _pad_arg([(-lo, -hi) for lo, hi in torch_pads]))
+
+
+def conv_transpose2d(x, kernel, strides, padding: str):
+    """:func:`conv_transpose_nd` at rank 2 (NHWC / HWIO)."""
+    return conv_transpose_nd(x, kernel, strides, padding, 2)
 
 
 class FusedEqualizedLRConv2DTranspose(nn.Module):

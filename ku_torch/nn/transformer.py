@@ -41,18 +41,21 @@ _TRUNC_STD = 0.87962566103423978
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` (in, out) with lecun-normal init,
-    ``bias`` zeros; ``y = x @ kernel + bias``."""
+    ``bias`` zeros (none with ``use_bias=False``); ``y = x @ kernel + bias``."""
 
     def __init__(self, in_features: int, features: int, *, device="cuda",
-                 dtype=None, generator: Optional[torch.Generator] = None):
+                 dtype=None, generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True):
         super().__init__()
         std = math.sqrt(1.0 / in_features) / _TRUNC_STD
         self.kernel = nn.Parameter(trunc_normal((in_features, features), std,
                                                 generator, device, dtype))
-        self.bias = nn.Parameter(torch.zeros(features, device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device, dtype=dtype))
+                     if use_bias else None)
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class LayerNorm(nn.Module):

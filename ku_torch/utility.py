@@ -114,6 +114,25 @@ def variables_from_module(module: torch.nn.Module) -> Dict[str, Any]:
     }
 
 
+def load_variables(module: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:
+    """Load ``ku``'s variables (``{"params": ..., "batch_stats": ...}``, the
+    latter optional) into ``module`` strictly, on the device of its
+    parameters; the inverse of :func:`variables_from_module`.
+
+    The port's modules that mirror flax ones keep flax's names, so this
+    carries, for instance, a ``Stack``'s or an ``Autoencoder``'s variables:
+    ``{name: {kernel, bias}}`` per Dense (kernel (in, out)) or conv layer
+    (kernel (*spatial, in, out), HWIO at rank 2), ``dense_bn``'s
+    ``Dense_0`` and ``BatchNorm_0`` ``{scale, bias}`` with
+    ``batch_stats`` ``{mean, var}``, a GCN's ``gcn_weight``, under
+    ``encoder`` / ``decoder`` for an ``Autoencoder``."""
+    device = next(iter(module.parameters()), torch.empty(0)).device
+    module.load_state_dict(state_dict_from_tree(
+        variables.get("params", {}), device, batch_stats=variables.get("batch_stats")),
+        strict=True)
+    return module
+
+
 def tree_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`state_dict_from_tree`: a nested dict of numpy
     arrays under ``ku``'s names."""

@@ -3,7 +3,9 @@ kernel here, the serving kernels (flash forward, flash decoding), the
 training ones (the flash backward, a Trainer step), the block-sparse
 ones (forward, dq, dk/dv, a Trainer step under a block mask) and the
 data-parallel CD step kernels (with RBM.fit(mesh=) in an NCCL world of one
-process) below.
+process) below; then StyleGAN and the GAN step, and the layer-spec engine
+(a Stack in f32 against float64 on the CPU, a batch-statistics Trainer),
+checkpoints of a card state and the resize.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -20,6 +22,8 @@ another order can still move a Bernoulli threshold by an ulp, which these
 few steps at these sizes do not meet: params rtol 1e-5 / atol 1e-5, scores
 rtol 1e-4 / atol 1e-4.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -1472,3 +1476,90 @@ def test_fit_generator_keeps_its_state_on_the_card(device):
             tensors += [state["exp_avg"], state["exp_avg_sq"]]
     assert all(t.device.type == "cuda" for t in tensors)
     assert engine.state["gen"].generator.device.type == "cuda"
+
+
+# -- the layer-spec engine, checkpoints and image utilities on the card --------------
+
+from ku_torch.backprop import make_autoencoder_from_encoder  # noqa: E402
+from ku_torch.engine_ext import Stack, Trainer, spec  # noqa: E402
+from ku_torch.image_utils import resize_batch  # noqa: E402
+from ku_torch.io import CheckpointManager  # noqa: E402
+from ku_torch.io.checkpoint import packed, trees_equal  # noqa: E402
+
+SPEC_CASES = {
+    "conv_odd_stride2": ((spec("conv2d", "c0", filters=8, kernel_size=3, strides=2,
+                               activation="relu"),
+                          spec("conv2d", "c1", filters=5, kernel_size=4, strides=2),
+                          spec("flatten", "f"), spec("dense", "d", units=7)), (6, 13, 11, 3)),
+    "dense_bn": ((spec("dense_bn", "bn0", units=24, activation="relu"),
+                  spec("dense_bn", "bn1", units=8), spec("dense", "out", units=5)), (32, 40)),
+    "transposes": ((spec("conv1d_transpose", "t1", filters=4, kernel_size=3, strides=2),
+                    spec("reshape", "r", target_shape=(2, 5, 4)),
+                    spec("conv2d_transpose", "t2", filters=3, kernel_size=3, strides=2)),
+                   (2, 5, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPEC_CASES))
+def test_stack_on_the_card_matches_cpu_float64(no_tf32, case):
+    """A Stack in f32 on the card against its float64 copy on the CPU: the
+    training-mode and inference outputs and the batch statistics after the
+    training-mode call, within 1e-5 of the largest entry."""
+    specs, shape = SPEC_CASES[case]
+    cpu = Stack(specs, shape, device="cpu", dtype=torch.float64,
+                generator=torch.Generator().manual_seed(3))
+    card = copy.deepcopy(cpu).to("cuda", torch.float32)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=shape))
+    for deterministic in (False, True):
+        want = cpu(x, deterministic=deterministic)
+        got = card(x.to("cuda", torch.float32), deterministic=deterministic)
+        assert _rel(got, want) <= 1e-5, (case, deterministic)
+    for (name, b), (_, want) in zip(card.named_buffers(), cpu.named_buffers()):
+        assert _rel(b, want) <= 1e-5, name
+
+
+def test_autoencoder_trainer_step_keeps_its_state_on_the_card(device):
+    specs = (spec("dense_bn", "e0", units=16, activation="relu"), spec("dense", "e1", units=4))
+    model = make_autoencoder_from_encoder(specs, (8, 12), device="cuda")
+    trainer = Trainer(model, lambda y, p: ((y - p) ** 2).mean(dim=-1), has_batch_stats=True)
+    x = np.random.default_rng(5).normal(size=(24, 12)).astype(np.float32)
+    history = trainer.fit(x, x, batch_size=8, epochs=2, verbose=0)
+    assert np.isfinite(history).all()
+    assert all(t.device.type == "cuda" for t in [*model.parameters(), *model.buffers()])
+    assert float(model.encoder.e0.BatchNorm_0.var.sum()) != 16.0  # the statistics moved
+
+
+def test_checkpoint_restores_a_card_state_bit_for_bit(device, tmp_path):
+    from ku_torch.core import TrainState
+    from ku_torch.engine_ext import adam
+
+    def state(seed):
+        torch.manual_seed(seed)
+        module = torch.nn.Linear(6, 4).to("cuda")
+        draws = torch.Generator(device="cuda").manual_seed(seed)
+        st = TrainState.create(module.parameters(), adam(1e-2), draws)
+        st.apply_gradients([torch.randn(p.shape, device="cuda", generator=draws)
+                            for p in st.params])
+        return {"train": st, "buffer": torch.randn(3, device="cuda", generator=draws)}
+
+    saved = state(0)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, saved)
+    target = state(1)
+    mgr.restore(0, template=target)
+    assert trees_equal(packed(target), packed(saved))
+    assert all(t.device.type == "cuda" for t in [*target["train"].params, target["buffer"]])
+    for st in target["train"].optimizer.state.values():
+        assert st["exp_avg"].device.type == "cuda"
+    a = torch.rand(4, device="cuda", generator=target["train"].generator)
+    b = torch.rand(4, device="cuda", generator=saved["train"].generator)
+    assert torch.equal(a, b)
+
+
+def test_resize_on_the_card_matches_the_cpu(device):
+    imgs = np.random.default_rng(6).uniform(size=(2, 37, 21, 3)).astype(np.float32)
+    for size in ((16, 16), (40, 9), (64, 64)):
+        got = resize_batch(torch.from_numpy(imgs).to("cuda"), size)
+        want = resize_batch(imgs, size)
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-6)
