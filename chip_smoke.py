@@ -98,8 +98,8 @@ Phases (any failure raises and the script exits non-zero):
    - ContinuousBatcher: 8 slots, prompt_len 64, chunk (8, 32), 24 requests
      with prompts of 16..192 tokens and budgets of 32..256; every request
      answered with exactly its budget.
-8. Serving timing: generate's decode tokens/s (the slope between 256 and
-   128 steps), prefill prompt tokens/s, batcher tokens/s and its ratio to
+8. Serving timing: generate's decode tokens/s (the slope between 192 and
+   96 steps, the faster of 2 runs each), prefill prompt tokens/s, batcher tokens/s and its ratio to
    generate; torch.profiler windows over one prefill and 8 decode steps
    (host wall time, device busy share, kernels by device time, the SM
    clock sampled by nvidia-smi meanwhile), which give each serving
@@ -145,7 +145,7 @@ Phases (any failure raises and the script exits non-zero):
    at all. Timed as in phase 8 (decode slope, prefill rate) beside the
    dense-cache `generate` on the same prompts, one run each; then, since
    the host clock wanders more than that, every decode step timed alone,
-   64 after a prefill, in the order paged, dense, dense, paged (medians).
+   32 after a prefill, in the order paged, dense, dense, paged (medians).
 12. bf16 paged `ContinuousBatcher`: 8 slots, prompt_len 256, chunk (8, 32),
    a pool of 24 pages (scratch page 0 and 23 allocatable) against the 64
    that 8 slots × 8 pages would take, a 300-token shared prefix (one full
@@ -357,6 +357,56 @@ Phases (any failure raises and the script exits non-zero):
    each an RBM.fit epoch: kernel #1 launches 3 times (its count set to 0
    just before).
 
+31. (Phases 31-35 run at the end of phase 13, on the f32 and bf16 LMs of
+   phase 7, with 1,024-slot dense caches unless a phase says otherwise.)
+   The ring (StreamingLLM) cache at full width, f32: window 256 with
+   use_flash; 8 prompts of 1,024 tokens prefilled (the banded flash
+   kernel, 32 launches), cached_key (8, 4, 256, 128), then 384 tokens fed
+   one by one (the ring wraps more than once; no kernel launches: ku reads
+   the ring in plain ops); every output against the plain non-decode
+   forward over the 1,408 tokens with the same window at rtol/atol 1e-4,
+   and the ring holding the last 256 positions. The same with 4 sinks +
+   window 252 on 2 prompts (the plain prefill: flash has no sinks). bf16:
+   the ring's decode steps beside the dense cache's (medians of 48 steps
+   timed one by one, in turns).
+32. int8 weights: quantize_weights of the f32 LM; weight-only prefill + 16
+   steps against the f32 LM on the dequantized weights (Q·s) at rtol/atol
+   1e-4. W8A8: ku's quality measures (tests/test_int8_quality.py, the
+   table x 4, 8 x 256 teacher-forced tokens) on ku's own setup (2 blocks,
+   d 64, RoPE, vocabulary 32), holding ku's bounds on the mean (0.5) and
+   99th percentile (2.0) of |dlogprob| and top-1 agreement (0.99), the
+   relative perplexity reported; the same measures on the LM; torch._int_mm
+   on the card, the decode steps' 8 rows padded to 24 (160 products a
+   step). bf16 decode steps of bf16, weight-only and W8A8 weights, in
+   turns, with the weights' size and the peak memory above it.
+33. fork_cache: a 512-token prefix prefilled at batch 1, forked 8 ways, 8
+   different 64-token suffixes prefilled as one chunk (flash at q_offset
+   512 into the non-empty cache), 32 greedy steps; logits (1e-4) and ids
+   against generate's loop on the 576-token prompts, under the near-tie
+   rule: a row may stop at its first mismatch only where that step's top-2
+   logit gap, in either run, is under 1e-4 of its largest logit, and at
+   most 1 row of 8 may.
+34. speculative_generate, f32, 8 prompts of 128 tokens, 64 steps, gamma 4,
+   with the target as its own draft and with its first 2 blocks (its
+   weights shared) reading out with the even token ids cycled (the random
+   LM's greedy continuation repeats a token, so only a draft that reads
+   out otherwise is ever rejected): ids against generate's under the
+   near-tie rule, the mean accepted a round (rows repeating an even id
+   rejected every round), the flash launches of the verify chunks and the
+   decode launches of the draft steps; speculative sampling at T = 1 (ids
+   in range, mean accepted in [1, 5]). bf16 tokens/s of the drafts (the
+   2-block one also with its own readout) beside generate.
+35. beam_search, f32, batch 2, beam 4, 32 steps after 128-token prompts:
+   32 flash launches, then 32 decode launches a step; each beam's score
+   against the teacher-forced sum of its tokens' log-softmax from one
+   non-decode forward (rtol 1e-4, atol 1e-3); beam 1 against greedy
+   generate under the near-tie rule. Then
+   examples_torch/transformer/transformer_generate.py and
+   transformer_server.py at their confs and transformer_classify.py for 4
+   epochs, as subprocesses on the card, together: each exits 0; the
+   generate example's greedy and beam accuracies at least 0.9 and
+   greedy-exact=True; the classifier's loss finite and falling.
+
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -405,7 +455,18 @@ from ku_torch.kernels import flash_attention as fa
 from ku_torch.kernels import sparse_attention as sa
 from ku_torch.loss_ext import gradient_penalty, r1_penalty
 from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator
-from ku_torch.nn import ContinuousBatcher, MultiHeadAttention, Transformer, generate
+from ku_torch.nn import (
+    ContinuousBatcher,
+    MultiHeadAttention,
+    QuantDense,
+    Transformer,
+    beam_search,
+    fork_cache,
+    generate,
+    int8_act_matmul,
+    quantize_weights,
+    speculative_generate,
+)
 from ku_torch.utility import (
     _flatten,
     load_weights,
@@ -428,6 +489,10 @@ DEVICE = "cuda"
 # 1,024-slot cache) and its workloads.
 LM_BLOCKS, LM_HEADS, LM_KV_HEADS, LM_D, LM_VOCAB, LM_MAX_LEN = 16, 16, 4, 2048, 1024, 1024
 GEN_B, GEN_P, GEN_STEPS = 8, 128, 256
+# The decode slopes of phases 8 and 11: runs of SLOPE_STEPS and half as
+# many, and the steps timed one by one in each of phase 11's four turns
+# (cut from 256 and 64 to make room for phases 31-35).
+SLOPE_STEPS, PAGED_TIMED_STEPS = 192, 32
 CB_SLOTS, CB_PROMPT_LEN, CB_CHUNK, CB_REQUESTS = 8, 64, (8, 32), 24
 # The paged phases: 256-slot pages over a 2,048-slot window (8 pages a row),
 # prompts of 640..1,024 tokens padded to 1,024; the paged batcher's pool,
@@ -1379,14 +1444,14 @@ class LM(torch.nn.Module):
     (``block{i}``), following the cache protocol; ``block_mask``, when set,
     goes to every block (the block-sparse phases)."""
 
-    def __init__(self, generator):
+    def __init__(self, generator, quant_weights=False, dtype=torch.float32):
         super().__init__()
         self.block_mask = None
         for i in range(LM_BLOCKS):
             self.add_module(f"block{i}", Transformer(
                 LM_HEADS, LM_D, 0.0, causal=True, rope=True, num_kv_head=LM_KV_HEADS,
-                max_decode_len=LM_MAX_LEN, use_flash=True, device=DEVICE,
-                dtype=torch.float32, generator=generator))
+                max_decode_len=LM_MAX_LEN, use_flash=True, quant_weights=quant_weights,
+                device=DEVICE, dtype=dtype, generator=generator))
 
     def forward(self, xs, decode=False, prompt_lengths=None, cache=None,
                 deterministic=True):
@@ -1837,14 +1902,16 @@ def run_lm(lm, table, prompts, lens, fed=None, steps=16):
 @torch.no_grad()
 def step_times(lm, embed, readout, prompts, lens, steps=64):
     """(host s of one prefill, host s of each of `steps` greedy decode
-    steps after it, each ended by a synchronise)."""
+    steps after it, each ended by a synchronise); `lens` None: prompts of
+    equal length."""
     x0 = embed(prompts)
     out = []
     t_pre = wall_s(lambda: out.append(lm([x0], decode=True, cache={},
                                          prompt_lengths=lens)))
     y, cache = out[0]
-    tok = readout(y[torch.arange(GEN_B, device=y.device), lens.long() - 1][:, None]
-                  )[:, 0].argmax(-1)
+    last = (y[:, -1] if lens is None
+            else y[torch.arange(prompts.shape[0], device=y.device), lens.long() - 1])
+    tok = readout(last[:, None])[:, 0].argmax(-1)
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1928,18 +1995,18 @@ def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> 
     rates = {}
     for layout, kw in (("paged", dict(kv_page_size=PAGE)), ("dense", {})):
         set_cache(lm, PAGED_MAX_LEN, **kw)
-        gen(GEN_STEPS // 2)  # warm this layout's allocations
-        t_full = wall_s(lambda: gen(GEN_STEPS))
-        t_half = wall_s(lambda: gen(GEN_STEPS // 2))
+        gen(SLOPE_STEPS // 2)  # warm this layout's allocations
+        t_full = wall_s(lambda: gen(SLOPE_STEPS))
+        t_half = wall_s(lambda: gen(SLOPE_STEPS // 2))
         x0 = embed(prompts)
         t_pre = min(wall_s(lambda: lm([x0], decode=True, cache={}, prompt_lengths=lens))
                     for _ in range(2))
-        rates[layout] = (GEN_B * (GEN_STEPS - GEN_STEPS // 2) / (t_full - t_half),
-                         n_prompt / t_pre, GEN_B * GEN_STEPS / t_full)
-        log(f"{layout}-cache generate ({PAGED_MAX_LEN}-slot window): {GEN_STEPS} steps "
-            f"{t_full:.4f} s, {GEN_STEPS // 2} steps {t_half:.4f} s; decode "
+        rates[layout] = (GEN_B * (SLOPE_STEPS - SLOPE_STEPS // 2) / (t_full - t_half),
+                         n_prompt / t_pre, GEN_B * SLOPE_STEPS / t_full)
+        log(f"{layout}-cache generate ({PAGED_MAX_LEN}-slot window): {SLOPE_STEPS} steps "
+            f"{t_full:.4f} s, {SLOPE_STEPS // 2} steps {t_half:.4f} s; decode "
             f"{rates[layout][0]:.1f} tokens/s (slope), "
-            f"{1e3 * (t_full - t_half) / (GEN_STEPS - GEN_STEPS // 2):.3f} ms a step; "
+            f"{1e3 * (t_full - t_half) / (SLOPE_STEPS - SLOPE_STEPS // 2):.3f} ms a step; "
             f"prefill {n_prompt} tokens in {t_pre * 1e3:.3f} ms, {rates[layout][1]:.1f} "
             f"tokens/s; whole run {rates[layout][2]:.1f} tokens/s")
     log(f"paging costs (one run each): decode {rates['paged'][0] / rates['dense'][0]:.3f}, "
@@ -1947,12 +2014,13 @@ def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> 
         f"{rates['paged'][2] / rates['dense'][2]:.3f} of the dense cache's rate")
     # The host clock of a one-card machine wanders by more than the gap a
     # slope from one run of each can show: so also every decode step timed
-    # alone, 64 after a prefill, in the order paged, dense, dense, paged.
+    # alone, PAGED_TIMED_STEPS after a prefill, in the order paged, dense,
+    # dense, paged.
     steps = {"paged": [], "dense": []}
     pre = {"paged": [], "dense": []}
     for layout in ("paged", "dense", "dense", "paged"):
         set_cache(lm, PAGED_MAX_LEN, **(dict(kv_page_size=PAGE) if layout == "paged" else {}))
-        t_pre, times = step_times(lm, embed, readout, prompts, lens)
+        t_pre, times = step_times(lm, embed, readout, prompts, lens, PAGED_TIMED_STEPS)
         pre[layout].append(t_pre)
         steps[layout] += times
     med = {}
@@ -2084,7 +2152,8 @@ def paged_serving(dev, name, lm, embed, readout, prompts, lens, max_abs_err) -> 
 
 
 def serving_path(dev, name) -> list:
-    """Phases 6-13; returns the entries of the three serving kernels."""
+    """Phases 6-13 and 31-35; returns the entries of the three serving
+    kernels."""
     flash_err, decode_err = serving_kernels_vs_plain(dev)
     paged_err = paged_kernels_vs_plain(dev)
     _, peak_bf16, peak_bw = peaks(name)
@@ -2109,8 +2178,6 @@ def serving_path(dev, name) -> list:
     set_cache(lm32, LM_MAX_LEN)
 
     lm = copy.deepcopy(lm32).to(torch.bfloat16)
-    del lm32
-    torch.cuda.empty_cache()
     table = table32.to(torch.bfloat16)
     embed = lambda ids, pos=None: table[ids]  # noqa: E731 (RoPE: no PE table)
     readout = lambda y: y @ table.T  # noqa: E731
@@ -2169,10 +2236,10 @@ def serving_path(dev, name) -> list:
         f"launches flash {cb_flash}, decode {cb_decode}")
 
     # 8. Timing (everything above warmed the kernels and the allocator).
-    t_full = min(wall_s(lambda: gen(GEN_STEPS)) for _ in range(2))
-    t_half = min(wall_s(lambda: gen(GEN_STEPS // 2)) for _ in range(2))
-    decode_tps = GEN_B * (GEN_STEPS - GEN_STEPS // 2) / (t_full - t_half)
-    gen_tps = GEN_B * GEN_STEPS / t_full
+    t_full = min(wall_s(lambda: gen(SLOPE_STEPS)) for _ in range(2))
+    t_half = min(wall_s(lambda: gen(SLOPE_STEPS // 2)) for _ in range(2))
+    decode_tps = GEN_B * (SLOPE_STEPS - SLOPE_STEPS // 2) / (t_full - t_half)
+    gen_tps = GEN_B * SLOPE_STEPS / t_full
     with torch.no_grad():
         x0 = embed(prompts)
         t_pre = min(wall_s(lambda: lm([x0], decode=True, cache={},
@@ -2181,9 +2248,9 @@ def serving_path(dev, name) -> list:
     t_cb = wall_s(lambda: cb.serve(reqs, budgets))
     cb_tps = cb.last_stats["decoded_tokens"] / t_cb
     flash_path_ms, decode_path_ms = profile_path(lm, embed, readout, prompts, lens)
-    log(f"generate: {GEN_STEPS} steps {t_full:.4f} s, {GEN_STEPS // 2} steps "
+    log(f"generate: {SLOPE_STEPS} steps {t_full:.4f} s, {SLOPE_STEPS // 2} steps "
         f"{t_half:.4f} s; decode {decode_tps:.1f} tokens/s (slope), "
-        f"{1e3 * (t_full - t_half) / (GEN_STEPS - GEN_STEPS // 2):.3f} ms a step; "
+        f"{1e3 * (t_full - t_half) / (SLOPE_STEPS - SLOPE_STEPS // 2):.3f} ms a step; "
         f"whole run {gen_tps:.1f} tokens/s")
     log(f"prefill: {int(lens_np.sum())} prompt tokens in {t_pre * 1e3:.3f} ms, "
         f"{prefill_tps:.1f} tokens/s")
@@ -2280,6 +2347,7 @@ def serving_path(dev, name) -> list:
         f"{decode_err:.3e}; f32 LM through the kernels vs plain {f32_err:.3e}")
     paged = paged_serving(dev, name, lm, embed, readout, paged_prompts, paged_lens,
                           max(paged_err, paged_f32_err))
+    serving_rest(dev, lm32, table32, lm, table, prompts, lens)
     return [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -2315,6 +2383,516 @@ def serving_path(dev, name) -> list:
         "bound_by": decode_by,
         "library_ms": decode_lib_ms,
     }, paged]
+
+
+# ---------------------------------------------------------------------------
+# The rest of serving (phases 31-35): the ring cache, int8 weights, prefix
+# caching, speculative decoding, beam search and the transformer examples.
+# ---------------------------------------------------------------------------
+
+# Phase 31: a 256-slot ring after 1,024-token prompts, 384 tokens fed (it
+# wraps the ring more than once); with sinks: 4 + 252 slots on 2 prompts.
+RING_WINDOW, RING_P, RING_FED = 256, 1024, 384
+SINK_GP, SINK_WINDOW, SINK_B = 4, 252, 2
+# Decode steps timed one by one for each bf16 comparison (medians).
+TIMED_STEPS = 24
+QUANT_STEPS = 16
+FORK_PREFIX, FORK_SUFFIX, FORK_STEPS = 512, 64, 32
+SPEC_P, SPEC_STEPS, SPEC_GAMMA, SPEC_DRAFT_BLOCKS = 128, 64, 4, 2
+W8A8_T = 256  # teacher-forced tokens a row for the W8A8 measures, as ku's test
+BEAM_B, BEAM_K, BEAM_P, BEAM_STEPS = 2, 4, 128, 32
+NEAR_TIE = 1e-4  # a top-2 logit gap under this share of the largest logit
+CLASSIFY_EPOCHS = 4
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch", "transformer")
+
+
+def set_ring(model, window, global_prefix=0, use_flash=True):
+    """Every attention layer's decode cache becomes a ring of global_prefix +
+    window slots (window None: the dense cache again); its non-decode
+    forward takes the same window. ku takes no flash with sinks."""
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.window, m.global_prefix, m.use_flash = window, global_prefix, use_flash
+
+
+def set_quant(model, mode):
+    """Switch a quantized model between weight-only (True) and W8A8."""
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.quant_weights = mode
+        elif isinstance(m, QuantDense):
+            m.act_quant = mode == "w8a8"
+
+
+class Stacked(torch.nn.Module):
+    """Transformer blocks in a row, following the cache protocol (scoped
+    ``block{i}``, as LM's); with an LM's first blocks, their weights
+    shared, a draft model."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = torch.nn.ModuleList(blocks)
+
+    def forward(self, xs, decode=False, prompt_lengths=None, cache=None,
+                deterministic=True):
+        x = xs[0]
+        for i, block in enumerate(self.blocks):
+            out = block([x], deterministic=deterministic, decode=decode,
+                        prompt_lengths=prompt_lengths, cache=cache, scope=f"block{i}")
+            x, cache = out if decode else (out, cache)
+        return (x, cache) if decode else x
+
+
+def first_blocks(lm, n):
+    return Stacked([getattr(lm, f"block{i}") for i in range(n)])
+
+
+def cache_leaf(cache, name):
+    return cache[f"block0/MultiHeadAttention_0/{name}"]
+
+
+@torch.no_grad()
+def greedy_run(lm, table, prompts, steps, cache=None):
+    """generate's greedy loop with every step's logits kept: (ids (B,
+    steps), logits (B, steps, V)). With `cache` (prefilled), `prompts` is
+    the chunk that continues it."""
+    y, cache = lm([table[prompts]], decode=True, cache={} if cache is None else cache)
+    logits = [(y[:, -1:] @ table.T)[:, 0]]
+    ids = [logits[-1].argmax(-1)]
+    for _ in range(steps - 1):
+        y, cache = lm([table[ids[-1][:, None]]], decode=True, cache=cache)
+        logits.append((y @ table.T)[:, 0])
+        ids.append(logits[-1].argmax(-1))
+    torch.cuda.synchronize()
+    return torch.stack(ids, 1), torch.stack(logits, 1)
+
+
+def top2_gap(logits) -> float:
+    """The top-2 gap of one row's logits, as a share of its largest |logit|."""
+    top = torch.topk(logits.float(), 2).values
+    return float((top[0] - top[1]) / logits.float().abs().max())
+
+
+@torch.no_grad()
+def last_logits(lm, table, prefix):
+    """The next-token logits after `prefix` (1-D ids), by one prefill."""
+    y, _ = lm([table[prefix[None]]], decode=True, cache={})
+    return (y[0, -1] @ table.T)
+
+
+def near_tie_rule(ids, want_ids, want_logits, lm, table, prompts, what) -> int:
+    """ids equal want_ids (generate's, with its logits) row by row, except
+    that a row may stop at its first mismatch where that step's top-2 gap,
+    in either run, is under NEAR_TIE of its largest logit (the other run's
+    logits at that step from a prefill of the row's shared history). Fails
+    if more than one row stops so; returns how many did."""
+    early = 0
+    for b in range(ids.shape[0]):
+        diff = (ids[b] != want_ids[b]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        mine = last_logits(lm, table, torch.cat([prompts[b], ids[b, :t]]))
+        gaps = (top2_gap(want_logits[b, t]), top2_gap(mine))
+        check(min(gaps) < NEAR_TIE, f"{what}: row {b} differs at step {t}, top-2 gaps "
+              f"{gaps[0]:.3e} / {gaps[1]:.3e} of the largest logit (not a near tie)")
+        log(f"  {what}: row {b} stops at step {t} on a near tie (gaps {gaps[0]:.3e}, "
+            f"{gaps[1]:.3e})")
+        early += 1
+    check(early <= 1, f"{what}: {early} of {ids.shape[0]} rows stop on near ties")
+    return early
+
+
+def decode_tps(times) -> float:
+    """tokens/s of GEN_B rows from the median of one-by-one step times."""
+    return GEN_B / float(np.median(times))
+
+
+@torch.no_grad()
+def ring_phase(dev, lm32, table32, lm, table):
+    """Phase 31."""
+    rng = np.random.default_rng(31)
+    prompts = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(GEN_B, RING_P))).to(dev)
+    fed = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(GEN_B, RING_FED))).to(dev)
+    seq = torch.cat([prompts, fed], 1)
+
+    def run(rows, window, gp, flash):
+        set_ring(lm32, window, gp, flash)
+        zero_counts()
+        y, cache = lm32([table32[prompts[:rows]]], decode=True, cache={})
+        torch.cuda.synchronize()
+        at_prefill = counts()
+        outs = [y]
+        t0 = time.perf_counter()
+        for i in range(RING_FED):
+            y, cache = lm32([table32[fed[:rows, i:i + 1]]], decode=True, cache=cache)
+            outs.append(y)
+        torch.cuda.synchronize()
+        fed_s = time.perf_counter() - t0
+        after = counts()
+        set_ring(lm32, window, gp, False)  # the reference: the plain dense path
+        ref = lm32([table32[seq[:rows]]])
+        set_ring(lm32, None)
+        want = [ref[:, :RING_P]] + [ref[:, RING_P + i:RING_P + i + 1] for i in range(RING_FED)]
+        what = (f"ring window {window}, {gp} sinks, {rows} rows, "
+                f"{'flash' if flash else 'plain'} prefill")
+        err = _agree(outs, want, what)
+        return err, at_prefill, after, cache, fed_s
+
+    err, at_prefill, after, cache, fed_s = run(GEN_B, RING_WINDOW, 0, True)
+    leaf = tuple(cache_leaf(cache, "cached_key").shape)
+    check(at_prefill == (2 * LM_BLOCKS, 0, 0),
+          f"the ring's flash prefill launched (flash, decode, paged) {at_prefill}")
+    check(after == at_prefill, f"the ring's steps launched kernels: {after} after {at_prefill}")
+    check(leaf == (GEN_B, LM_KV_HEADS, RING_WINDOW, LM_D // LM_HEADS),
+          f"ring cache leaf {leaf}")
+    pos = cache_leaf(cache, "cache_pos")
+    last = RING_P + RING_FED
+    check(bool((pos.sort(-1).values == torch.arange(last - RING_WINDOW, last, device=dev)
+                ).all()), "the ring does not hold the last window's positions")
+    log(f"ring, f32, window {RING_WINDOW}: {GEN_B} prompts of {RING_P} prefilled (flash "
+        f"launches {at_prefill[0]}), {RING_FED} tokens fed one by one ({fed_s:.2f} s, "
+        f"no kernel launch: {after}), cached_key {leaf}; every output agrees with the "
+        f"full windowed forward over {last} tokens (max abs diff {err:.3e})")
+    err_s, at_prefill, after, cache, _ = run(SINK_B, SINK_WINDOW, SINK_GP, False)
+    check(at_prefill == after == (0, 0, 0), f"the sink ring launched kernels: {after}")
+    pos = cache_leaf(cache, "cache_pos")
+    check(bool((pos[:, :SINK_GP] == torch.arange(SINK_GP, device=dev)).all()),
+          "the sinks do not hold positions 0..3")
+    log(f"ring, f32, {SINK_GP} sinks + window {SINK_WINDOW}: {SINK_B} prompts, plain "
+        f"prefill, {RING_FED} tokens fed; agrees with the full forward (max abs diff "
+        f"{err_s:.3e})")
+
+    # bf16: the ring's decode steps beside the dense cache's, same prompts,
+    # in turns ring, dense, dense, ring.
+    p128 = prompts[:, :GEN_P]
+    embed = lambda ids, pos=None: table[ids]  # noqa: E731
+    readout = lambda y: y @ table.T  # noqa: E731
+    times = {"ring": [], "dense": []}
+    for kind in ("ring", "dense", "dense", "ring"):
+        set_ring(lm, RING_WINDOW if kind == "ring" else None)
+        times[kind] += step_times(lm, embed, readout, p128, None, TIMED_STEPS)[1]
+    set_ring(lm, None)
+    tps = {k: decode_tps(v) for k, v in times.items()}
+    log(f"ring bf16 decode at window {RING_WINDOW}, {GEN_B} rows after {GEN_P}-token "
+        f"prompts: {tps['ring']:.1f} tokens/s (median step "
+        f"{1e3 * np.median(times['ring']):.3f} ms) beside the {LM_MAX_LEN}-slot dense cache's "
+        f"{tps['dense']:.1f} ({1e3 * np.median(times['dense']):.3f} ms), "
+        f"{2 * TIMED_STEPS} steps each")
+
+
+@torch.no_grad()
+def w8a8_quality(float_model, w8a8_model, table, g, rows, tokens):
+    """ku's W8A8 quality measures over rows x tokens teacher-forced
+    log-probabilities from one prefill each: (mean |dlogprob|, its 99th
+    percentile, relative perplexity change, top-1 agreement)."""
+    ids = torch.randint(0, table.shape[0], (rows, tokens + 1), generator=g,
+                        device=table.device)
+
+    def logprobs(model):
+        y, _ = model([table[ids[:, :-1]]], decode=True, cache={})
+        return torch.log_softmax(y @ table.T, -1).double().cpu()
+
+    lg_q, lg_f = logprobs(w8a8_model), logprobs(float_model)
+    check(bool(torch.isfinite(lg_q).all()), "non-finite W8A8 logits")
+    tgt = ids[:, 1:].cpu()
+    lp_q = lg_q.gather(-1, tgt[..., None])[..., 0]
+    lp_f = lg_f.gather(-1, tgt[..., None])[..., 0]
+    d = (lp_q - lp_f).abs()
+    ppl_q, ppl_f = math.exp(-float(lp_q.mean())), math.exp(-float(lp_f.mean()))
+    return (float(d.mean()), float(np.percentile(d.numpy(), 99)),
+            abs(ppl_q - ppl_f) / ppl_f,
+            float((lg_q.argmax(-1) == lg_f.argmax(-1)).double().mean()))
+
+
+def fmt_quality(m) -> str:
+    return f"({m[0]:.4f}, {m[1]:.4f}, {m[2]:.5f}, {m[3]:.4f})"
+
+
+def dequantized(qsd):
+    """The float state dict a quantized one describes (Q · s)."""
+    return {k: (v.float() * qsd[k + "_scale"] if v.dtype == torch.int8 else v)
+            for k, v in qsd.items() if not (k.endswith("_scale") and k[:-6] in qsd)}
+
+
+@torch.no_grad()
+def quant_phase(dev, lm32, table32, lm, table, prompts, lens):
+    """Phase 32."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    lmq = LM(g, quant_weights=True).eval()
+    qsd = quantize_weights(lm32.state_dict(), lmq)
+    lmq.load_state_dict(qsd, strict=True)
+    deq = copy.deepcopy(lm32)
+    deq.load_state_dict(dequantized(qsd), strict=True)
+    fed = torch.randint(0, LM_VOCAB, (GEN_B, QUANT_STEPS), generator=g, device=dev)
+    got, _ = run_lm(lmq, table32, prompts, lens, fed, QUANT_STEPS)
+    want, _ = run_lm(deq, table32, prompts, lens, fed, QUANT_STEPS)
+    err = _agree(got, want, "int8 weights (weight-only) vs the float LM on Q·s")
+    del deq, got, want
+    torch.cuda.empty_cache()
+
+    # W8A8 against the float model: ku's quality check
+    # (tests/test_int8_quality.py::test_w8a8_logprob_delta_bound) on its own
+    # setup, then the same measures on this LM. Its bounds on the mean and
+    # 99th percentile of |dlogprob| and on top-1 agreement hold with room;
+    # its relative-perplexity bound (0.01) is the draw's: ku's own weights
+    # give 0.00925, another init draw of the same setup 0.0323 in ku itself,
+    # so it is reported, not held.
+    set_quant(lmq, "w8a8")
+    g_ku = torch.Generator(device=dev).manual_seed(320)
+    f2 = Stacked([Transformer(4, 64, 0.0, causal=True, rope=True, max_decode_len=256,
+                              device=dev, generator=g_ku) for _ in range(2)]).eval()
+    q2 = Stacked([Transformer(4, 64, 0.0, causal=True, rope=True, max_decode_len=256,
+                              quant_weights="w8a8", device=dev) for _ in range(2)]).eval()
+    q2.load_state_dict(quantize_weights(f2.state_dict(), q2), strict=True)
+    ku_table = torch.randn(32, 64, generator=g_ku, device=dev) * 4.0
+    ku_bound = w8a8_quality(f2, q2, ku_table, g_ku, 8, 256)
+    d_mean, d_p99, _, agree = ku_bound
+    check(d_mean < 0.5 and d_p99 < 2.0 and agree > 0.99,
+          f"W8A8 outside ku's bounds on ku's setup: mean |dlogprob| {d_mean:.4f}, p99 "
+          f"{d_p99:.4f}, top-1 agreement {agree:.4f}")
+    lm_measures = w8a8_quality(lm32, lmq, table32 * 4.0, g, GEN_B, W8A8_T)
+    del f2, q2
+    calls, padded = int8_act_matmul.int_mm_calls, int8_act_matmul.padded
+    y, cache = lmq([table32[prompts]], decode=True, cache={}, prompt_lengths=lens)
+    prefill_padded = int8_act_matmul.padded - padded
+    tok = (y[torch.arange(GEN_B, device=dev), lens.long() - 1] @ table32.T).argmax(-1)
+    for _ in range(2):
+        y, cache = lmq([table32[tok[:, None]]], decode=True, cache=cache)
+        tok = (y[:, 0] @ table32.T).argmax(-1)
+    torch.cuda.synchronize()
+    per_step = 10 * LM_BLOCKS  # 4 projections x 2 attention sublayers + 2 FFN
+    check(int8_act_matmul.int_mm_calls - calls == 3 * per_step and prefill_padded == 0
+          and int8_act_matmul.padded - padded == 2 * per_step,
+          f"_int_mm calls {int8_act_matmul.int_mm_calls - calls}, padded "
+          f"{int8_act_matmul.padded - padded} (prefill {prefill_padded})")
+    log(f"int8 weights: weight-only prefill + {QUANT_STEPS} steps agree with the float "
+        f"LM on the dequantized weights (max abs diff {err:.3e}); W8A8 against the float "
+        f"model over {GEN_B} x {W8A8_T} teacher-forced tokens, table x 4 (mean |dlogprob|, "
+        f"p99, relative perplexity, top-1 agreement): ku's setup (2 blocks, d 64, RoPE, "
+        f"vocabulary 32, 8 x 256 tokens) {fmt_quality(ku_bound)}, ku's bounds (0.5, 2.0, "
+        f"reported, 0.99); "
+        f"this LM ({LM_BLOCKS} blocks, d {LM_D}) {fmt_quality(lm_measures)}; _int_mm "
+        f"{3 * per_step} calls, the {2 * per_step} of the decode steps on rows padded from "
+        f"{GEN_B} to 24")
+    del lmq
+    torch.cuda.empty_cache()
+
+    # bf16: decode steps of bf16, weight-only and W8A8 weights in turns.
+    lmq16 = LM(g, quant_weights=True, dtype=torch.bfloat16).eval()
+    lmq16.load_state_dict(quantize_weights(lm.state_dict(), lmq16), strict=True)
+    embed = lambda ids, pos=None: table[ids]  # noqa: E731
+    readout = lambda y: y @ table.T  # noqa: E731
+    models = {"bf16": (lm, None), "int8": (lmq16, True), "w8a8": (lmq16, "w8a8")}
+    times = {k: [] for k in models}
+    peak = {}
+    for kind in ("bf16", "int8", "w8a8", "w8a8", "int8", "bf16"):
+        model, mode = models[kind]
+        if mode is not None:
+            set_quant(model, mode)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[kind] += step_times(model, embed, readout, prompts, lens, TIMED_STEPS)[1]
+        peak[kind] = max(peak.get(kind, 0), torch.cuda.max_memory_allocated() - base)
+    weights = {k: sum(p.numel() * p.element_size() for p in m.parameters())
+               for k, (m, _) in models.items()}
+    tps = {k: decode_tps(v) for k, v in times.items()}
+    log("bf16 decode by weights, " + ", ".join(
+        f"{k}: {tps[k]:.1f} tokens/s (median step {1e3 * np.median(times[k]):.3f} ms), "
+        f"weights {weights[k] / 2**30:.3f} GiB, peak above them {peak[k] / 2**20:.1f} MiB"
+        for k in models) + f"; {2 * TIMED_STEPS} steps each, in turns")
+    del lmq16
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def fork_phase(dev, lm32, table32):
+    """Phase 33."""
+    rng = np.random.default_rng(33)
+    prefix = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(1, FORK_PREFIX))).to(dev)
+    sufs = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(GEN_B, FORK_SUFFIX))).to(dev)
+    zero_counts()
+    _, shared = lm32([table32[prefix]], decode=True, cache={})
+    forked = fork_cache(shared, GEN_B)
+    check(cache_leaf(forked, "cache_index").tolist() == [FORK_PREFIX] * GEN_B,
+          "the forked cache's index")
+    ids, logits = greedy_run(lm32, table32, sufs, FORK_STEPS, cache=forked)
+    launches = counts()
+    check(launches == (4 * LM_BLOCKS, 2 * LM_BLOCKS * (FORK_STEPS - 1), 0),
+          f"fork: launches (flash, decode, paged) {launches}")
+    full = torch.cat([prefix.expand(GEN_B, -1), sufs], 1)
+    want_ids, want_logits = greedy_run(lm32, table32, full, FORK_STEPS)
+    early = near_tie_rule(ids, want_ids, want_logits, lm32, table32, full, "fork_cache")
+    worst = 0.0
+    for b in range(GEN_B):
+        diff = (ids[b] != want_ids[b]).nonzero()
+        t = int(diff[0]) + 1 if len(diff) else FORK_STEPS
+        torch.testing.assert_close(logits[b, :t], want_logits[b, :t], rtol=1e-4, atol=1e-4,
+                                   msg=f"fork_cache logits, row {b}")
+        worst = max(worst, _max_diff(logits[b, :t], want_logits[b, :t]))
+    log(f"fork_cache: a {FORK_PREFIX}-token prefix prefilled once at batch 1, forked "
+        f"{GEN_B} ways, {GEN_B} different {FORK_SUFFIX}-token suffixes as one chunk (flash "
+        f"at q_offset {FORK_PREFIX}), {FORK_STEPS} greedy steps: launches flash "
+        f"{launches[0]}, decode {launches[1]}; against generate on the "
+        f"{FORK_PREFIX + FORK_SUFFIX}-token prompts: logits max abs diff {worst:.3e}, ids equal, "
+        f"{early} rows stop on a near tie")
+
+
+@torch.no_grad()
+def speculative_phase(dev, lm32, table32, lm, table):
+    """Phase 34."""
+    rng = np.random.default_rng(34)
+    prompts = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(GEN_B, SPEC_P))).to(dev)
+    embed = lambda ids, pos=None: table32[ids]  # noqa: E731
+    readout = lambda y: y @ table32.T  # noqa: E731
+    want_ids, want_logits = greedy_run(lm32, table32, prompts, SPEC_STEPS)
+    # This random LM's greedy continuation repeats a row's last token (its
+    # blocks' residuals carry the token's embedding to the tied readout), so
+    # any draft made of its blocks proposes what it accepts. The second
+    # draft reads out with the even token ids cycled: a row that repeats an
+    # even id is rejected every round, so the caches rewind on the card.
+    perm = torch.arange(LM_VOCAB, device=dev)
+    perm[0::2] = perm[0::2].roll(1)
+    draft32 = first_blocks(lm32, SPEC_DRAFT_BLOCKS)
+    for what, draft, d_readout in (
+            ("the target as its own draft", lm32, readout),
+            (f"its first {SPEC_DRAFT_BLOCKS} blocks, even ids cycled", draft32,
+             lambda y: y @ table32[perm].T)):
+        zero_counts()
+        ids, acc = speculative_generate(lm32, draft, prompts, SPEC_STEPS,
+                                        gamma=SPEC_GAMMA, embed=embed, readout=readout,
+                                        draft_readout=d_readout)
+        torch.cuda.synchronize()
+        flash, decode, paged = counts()
+        check(flash > 2 * LM_BLOCKS and decode > 0 and paged == 0,
+              f"speculative launches (flash, decode, paged) {(flash, decode, paged)}")
+        early = near_tie_rule(ids, want_ids, want_logits, lm32, table32, prompts,
+                              f"speculative ({what})")
+        check(what.startswith("the target") or float(acc.min()) < SPEC_GAMMA + 1,
+              f"speculative ({what}): no proposal was rejected, {acc.tolist()}")
+        log(f"speculative greedy, f32, {what}, gamma {SPEC_GAMMA}: ids equal generate's "
+            f"({early} rows stop on a near tie); mean accepted a round "
+            f"{[round(float(a), 3) for a in acc]} "
+            f"(gamma + 1 = {SPEC_GAMMA + 1}); launches flash {flash} (the prompt and "
+            f"every verify chunk), decode {decode} (the draft steps)")
+    ids, acc = speculative_generate(lm32, draft32, prompts, 16, gamma=SPEC_GAMMA,
+                                    temperature=1.0, embed=embed, readout=readout,
+                                    generator=torch.Generator(device=dev).manual_seed(34))
+    check(bool(((ids >= 0) & (ids < LM_VOCAB)).all()) and ids.shape == (GEN_B, 16),
+          "speculative sampling ids")
+    check(bool(((acc >= 1) & (acc <= SPEC_GAMMA + 1)).all()),
+          f"speculative sampling mean accepted {acc.tolist()}")
+    log(f"speculative sampling at T = 1, 16 steps: ids in range, mean accepted "
+        f"{[round(float(a), 3) for a in acc]}")
+
+    # bf16: tokens/s of both drafts beside generate, one run each.
+    embed16 = lambda ids, pos=None: table[ids]  # noqa: E731
+    readout16 = lambda y: y @ table.T  # noqa: E731
+    draft16 = first_blocks(lm, SPEC_DRAFT_BLOCKS)
+    runs = {
+        "generate": lambda: generate(lm, prompts, SPEC_STEPS, embed=embed16,
+                                     readout=readout16),
+        "self-draft": lambda: speculative_generate(lm, lm, prompts, SPEC_STEPS,
+                                                   gamma=SPEC_GAMMA, embed=embed16,
+                                                   readout=readout16),
+        f"{SPEC_DRAFT_BLOCKS}-block draft": lambda: speculative_generate(
+            lm, draft16, prompts, SPEC_STEPS, gamma=SPEC_GAMMA, embed=embed16,
+            readout=readout16),
+        f"{SPEC_DRAFT_BLOCKS}-block draft, even ids cycled": lambda: speculative_generate(
+            lm, draft16, prompts, SPEC_STEPS, gamma=SPEC_GAMMA, embed=embed16,
+            readout=readout16, draft_readout=lambda y: y @ table[perm].T),
+    }
+    tps = {k: GEN_B * SPEC_STEPS / wall_s(fn) for k, fn in runs.items()}
+    log(f"bf16, {GEN_B} rows x {SPEC_STEPS} tokens after {SPEC_P}-token prompts: " + ", ".join(
+        f"{k} {v:.1f} tokens/s" for k, v in tps.items()))
+
+
+@torch.no_grad()
+def beam_phase(dev, lm32, table32):
+    """Phase 35's beam search."""
+    rng = np.random.default_rng(35)
+    prompts = torch.from_numpy(rng.integers(0, LM_VOCAB, size=(BEAM_B, BEAM_P))).to(dev)
+    kw = dict(embed=lambda ids, pos=None: table32[ids], readout=lambda y: y @ table32.T)
+    zero_counts()
+    beams, scores = beam_search(lm32, prompts, BEAM_STEPS, beam_size=BEAM_K, **kw)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == (2 * LM_BLOCKS, 2 * LM_BLOCKS * (BEAM_STEPS - 1), 0),
+          f"beam search launches (flash, decode, paged) {launches}")
+    check(beams.shape == (BEAM_B, BEAM_K, BEAM_STEPS)
+          and bool((scores[:, 1:] <= scores[:, :-1]).all()), "beams not best first")
+    # Each beam's score is the teacher-forced sum of its tokens' log-softmax.
+    seqs = torch.cat([prompts.repeat_interleave(BEAM_K, 0), beams.reshape(-1, BEAM_STEPS)], 1)
+    logp = torch.log_softmax(kw["readout"](lm32([table32[seqs]])), -1)
+    forced = logp[:, BEAM_P - 1:-1].gather(-1, seqs[:, BEAM_P:, None])[..., 0].sum(1)
+    torch.testing.assert_close(scores.reshape(-1), forced, rtol=1e-4, atol=1e-3,
+                               msg="beam scores vs the teacher-forced sums")
+    want_ids, want_logits = greedy_run(lm32, table32, prompts, BEAM_STEPS)
+    one, _ = beam_search(lm32, prompts, BEAM_STEPS, beam_size=1, **kw)
+    early = near_tie_rule(one[:, 0], want_ids, want_logits, lm32, table32, prompts,
+                          "beam 1")
+    log(f"beam search, f32, batch {BEAM_B}, beam {BEAM_K}, {BEAM_STEPS} steps after "
+        f"{BEAM_P}-token prompts: scores {scores.tolist()} equal the teacher-forced sums "
+        f"(max abs diff {_max_diff(scores.reshape(-1), forced):.3e}); launches flash "
+        f"{launches[0]}, decode {launches[1]} ({2 * LM_BLOCKS} a step); beam 1 equals "
+        f"greedy generate ({early} rows stop on a near tie)")
+
+
+def transformer_examples():
+    """Phase 35's example scripts, as subprocesses on the card, together."""
+    cmds = {
+        "generate": [sys.executable, os.path.join(EXAMPLES, "transformer_generate.py")],
+        "server": [sys.executable, os.path.join(EXAMPLES, "transformer_server.py")],
+        "classify": [sys.executable, os.path.join(EXAMPLES, "transformer_classify.py"),
+                     "--epochs", str(CLASSIFY_EPOCHS)],
+    }
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            outs[k] = proc.communicate(timeout=300)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for k, proc in procs.items():
+        check(proc.returncode == 0,
+              f"transformer_{k}.py exited {proc.returncode}:\n{outs[k][-3000:]}")
+    gen = outs["generate"]
+    greedy = float(re.search(r"generation accuracy \(greedy.*\): ([\d.]+)", gen).group(1))
+    beam = float(re.search(r"top-beam accuracy: ([\d.]+)", gen).group(1))
+    check(greedy >= 0.9 and beam >= 0.9 and "greedy-exact=True" in gen,
+          f"transformer_generate.py: greedy {greedy}, beam {beam}:\n{gen[-2000:]}")
+    losses = [float(x) for x in re.findall(r"epoch \d+/\d+ loss: (\S+)", outs["classify"])]
+    check(len(losses) == CLASSIFY_EPOCHS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"transformer_classify.py losses {losses}")
+    for k in cmds:
+        lines = [ln for ln in outs[k].splitlines() if not ln.startswith("epoch ")]
+        log(f"transformer_{k}.py (exit 0): " + " | ".join(lines[-7:]))
+    log(f"the three examples ran together in {wall:.1f} s; classify's losses by epoch "
+        f"{losses}")
+
+
+def serving_rest(dev, lm32, table32, lm, table, prompts, lens):
+    """Phases 31-35, each timed, on both LMs with 1,024-slot dense caches."""
+    set_cache(lm32, LM_MAX_LEN)
+    set_cache(lm, LM_MAX_LEN)
+    seconds = {}
+    for phase, fn in ((31, lambda: ring_phase(dev, lm32, table32, lm, table)),
+                      (32, lambda: quant_phase(dev, lm32, table32, lm, table, prompts, lens)),
+                      (33, lambda: fork_phase(dev, lm32, table32)),
+                      (34, lambda: speculative_phase(dev, lm32, table32, lm, table)),
+                      (35, lambda: beam_phase(dev, lm32, table32)),
+                      ("35 examples", transformer_examples)):
+        t0 = time.perf_counter()
+        fn()
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+    log(f"phases 31-35 seconds: {seconds}")
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,11 @@ is one launch of a hand-written Hopper kernel
 ``torch.distributed`` mesh (:mod:`ku_torch.dist`) takes each step through
 two hand-written step kernels with an all-reduce between them
 (:mod:`ku_torch.kernels.cd_gibbs_dp`); the attention, transformer and serving
-stack (:mod:`ku_torch.nn`: ``MultiHeadAttention`` with dense, paged and
-int8 KV caches, ``Transformer``, the position encodings, ``generate``, the
-``ContinuousBatcher`` over a dense cache or a page pool, and the StyleGAN
-layers), whose prefill and
+stack (:mod:`ku_torch.nn`: ``MultiHeadAttention`` with dense, paged, ring
+and int8 KV caches and int8 weights, ``Transformer``, the position
+encodings, ``generate``, ``fork_cache``, ``speculative_generate``,
+``beam_search``, the ``ContinuousBatcher`` over a dense cache or a page
+pool, and the StyleGAN layers), whose prefill and
 per-token reads go through hand-written kernels for flash attention and
 flash decoding, dense and paged (:mod:`ku_torch.kernels.flash_attention`,
 :mod:`ku_torch.kernels.decode_attention`), and whose ``use_flash``
@@ -61,6 +62,12 @@ from ku_torch.nn import (
     PeriodicPositionEncoding,
     Transformer,
     InterferedTransformer,
+    QuantDense,
+    beam_search,
+    fork_cache,
+    generate,
+    quantize_weights,
+    speculative_generate,
 )
 
 from ku_torch.utility import (

@@ -38,12 +38,16 @@ from ku_torch.nn.attention import (
 )
 from ku_torch.nn.transformer import Dense, LayerNorm, Transformer, InterferedTransformer
 from ku_torch.nn.decoding import (
+    beam_search,
     chosen_logprob,
+    fork_cache,
     generate,
     greedy,
     make_sampler,
     mask_after_eos,
+    speculative_generate,
 )
+from ku_torch.nn.quant import QuantDense, int8_act_matmul, quantize_weights
 from ku_torch.nn.serving import ContinuousBatcher
 from ku_torch.nn.position_encoding import (
     OrdinalPositionEncoding,

@@ -58,9 +58,23 @@ carries the pattern, causality included: the layer's ``causal`` must agree
 and its ``window`` and ``global_prefix`` stay unset; dropout, segment ids,
 softcap and decode are refused with ``ku``'s messages.
 
-Not ported yet, and raising ``NotImplementedError`` with the slice that
-brings them: the ring cache (``window`` with ``decode=True``) and
-``quant_weights``.
+The ring cache (``window`` with ``decode=True``, StreamingLLM) holds
+``global_prefix`` sink slots and ``window`` rolling ones, for decode of
+any length: ``{scope}/cached_key`` / ``cached_value`` are slot-MAJOR
+(B, Hkv, gp + window, D/H) (and int8 scales (B, Hkv, gp + window)), beside
+``{scope}/cache_pos`` (B, gp + window) int32, each slot's global position
+(−1 while empty). A prefill needs an empty cache and equal lengths: it
+attends the raw prompt (banded flash attention with ``use_flash``, which
+takes no sinks, else the dense pass with the sinks' escape) and then keeps
+the last position written to each slot. A token goes to slot
+gp + (i − gp) mod window past the sinks and attends the occupied slots that
+are sinks or inside the window, in plain torch on every device: ``ku``
+reads the ring with XLA, never with its decode kernel.
+
+``quant_weights`` (True, or ``"w8a8"``) makes ``W_Q``, ``W_K``, ``W_V`` and
+``W_multi_head`` int8 with f32 ``<name>_scale`` beside each, filled by
+:func:`ku_torch.nn.quant.quantize_weights`; ``W_gen_S`` / ``W_add_S_*`` stay
+float.
 """
 
 from __future__ import annotations
@@ -80,6 +94,7 @@ from ku_torch.kernels.decode_attention import (
 )
 from ku_torch.kernels.flash_attention import flash_attention
 from ku_torch.kernels.sparse_attention import sparse_attention
+from ku_torch.nn.quant import quant_project, quant_weight
 
 SIMILARITY_TYPE_DIFF_ABS = "diff_abs"
 SIMILARITY_TYPE_PLAIN = "plain"
@@ -95,11 +110,6 @@ _SIMILARITY_TYPES = (
     SIMILARITY_TYPE_ADDITIVE,
 )
 _MASKED = -1e30
-
-
-def _not_ported(feature: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not ported to ku_torch yet; it "
-                               f"comes with the {slice_} slice of the port")
 
 
 def scoped(scope: str, name: str) -> str:
@@ -159,8 +169,10 @@ class MultiHeadAttention(nn.Module):
                  d_input: Optional[int] = None, device="cuda", dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if quant_weights:
-            raise _not_ported("quant_weights", "weight-quantization")
+        if quant_weights not in (False, True, "w8a8"):
+            raise ValueError("quant_weights must be False, True or 'w8a8', got "
+                             f"{quant_weights!r}")
+        self.quant_weights = quant_weights
         self.num_head = num_head
         self.d_output = d_output
         self.dropout_rate = dropout_rate
@@ -188,10 +200,17 @@ class MultiHeadAttention(nn.Module):
                              f"heads into {hkv} kv heads")
         dh = d // h
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.W_Q = nn.Parameter(trunc_normal((d, d), 0.02, **kw))
-        self.W_K = nn.Parameter(trunc_normal((d, dh * hkv), 0.02, **kw))
-        self.W_V = nn.Parameter(trunc_normal((d, dh * hkv), 0.02, **kw))
-        self.W_multi_head = nn.Parameter(trunc_normal((d, d_output), 0.02, **kw))
+        shapes = dict(W_Q=(d, d), W_K=(d, dh * hkv), W_V=(d, dh * hkv),
+                      W_multi_head=(d, d_output))
+        for name, shape in shapes.items():
+            if quant_weights:
+                # ku's quantized template: int8 zeros and f32 unit scales,
+                # filled by quantize_weights.
+                w, scale = quant_weight(shape, device)
+                setattr(self, name, w)
+                setattr(self, name + "_scale", scale)
+            else:
+                setattr(self, name, nn.Parameter(trunc_normal(shape, 0.02, **kw)))
         if similarity_type == SIMILARITY_TYPE_GENERAL:
             self.W_gen_S = nn.Parameter(trunc_normal((dh, dh), 0.02, **kw))
         elif similarity_type == SIMILARITY_TYPE_ADDITIVE:
@@ -237,11 +256,9 @@ class MultiHeadAttention(nn.Module):
                                  "express global_prefix via block_mask instead")
         if decode and not self.causal:
             raise ValueError("decode=True requires causal=True")
-        if decode and self.window is not None:
-            raise _not_ported("the ring KV cache (window with decode=True)",
-                              "ring-cache")
-        if decode and self.max_decode_len is None:
-            raise ValueError("decode=True requires max_decode_len")
+        if decode and self.max_decode_len is None and self.window is None:
+            raise ValueError("decode=True requires max_decode_len (or a "
+                             "sliding window for the ring-buffer cache)")
         if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError("kv_cache_dtype must be None or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
@@ -271,8 +288,13 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("logit_softcap requires the scaled no-mask path")
             if block_mask is not None:
                 raise ValueError("the block-sparse kernel has no logit_softcap")
-        if prompt_lengths is not None and not decode:
-            raise ValueError("prompt_lengths is a decode-prefill argument")
+        if prompt_lengths is not None:
+            if not decode:
+                raise ValueError("prompt_lengths is a decode-prefill argument")
+            if self.window is not None:
+                raise ValueError("ragged prefill is not supported on ring "
+                                 "caches (per-sequence ring layouts diverge) "
+                                 "— pad to equal lengths")
 
     def forward(self, inputs, deterministic: bool = True, decode: bool = False,
                 segment_ids=None, block_mask=None, prompt_lengths=None,
@@ -296,9 +318,9 @@ class MultiHeadAttention(nn.Module):
             b, n = x.shape[0], x.shape[1]
             return x.reshape(b, n, nh, dh).transpose(1, 2)
 
-        q_h = split_heads(q @ self.W_Q, d_k_h)
-        k_h = split_heads(k @ self.W_K, d_k_h, hkv)
-        v_h = split_heads(v @ self.W_V, d_v_h, hkv)
+        q_h = split_heads(self._project(q, "W_Q"), d_k_h)
+        k_h = split_heads(self._project(k, "W_K"), d_k_h, hkv)
+        v_h = split_heads(self._project(v, "W_V"), d_v_h, hkv)
         if self.rope:
             if d_k_h % 2:
                 raise ValueError(f"rope needs an even head dim, got {d_k_h}")
@@ -329,8 +351,17 @@ class MultiHeadAttention(nn.Module):
             head = self._dense(q_h, k_h, v_h, m, d_k, segment_ids, deterministic)
 
         b, n = q.shape[0], q.shape[1]
-        y = head.transpose(1, 2).reshape(b, n, d_v) @ self.W_multi_head
+        y = self._project(head.transpose(1, 2).reshape(b, n, d_v), "W_multi_head")
         return (y, cache) if decode else y
+
+    def _project(self, x, name):
+        """``x @ W``, or with ``quant_weights`` the int8 weight and its
+        column scales (:func:`ku_torch.nn.quant.quant_project`)."""
+        w = getattr(self, name)
+        if not self.quant_weights:
+            return x @ w
+        return quant_project(x, w, getattr(self, name + "_scale"),
+                             self.quant_weights == "w8a8")
 
     def _dense(self, q_h, k_h, v_h, m, d_k, segment_ids, deterministic):
         h = self.num_head
@@ -386,13 +417,17 @@ class MultiHeadAttention(nn.Module):
         hkv, d_v_h = k_h.shape[1], v_h.shape[-1]
         device, kv_dt = q_h.device, k_h.dtype
         paged, quant = self.kv_page_size is not None, self.kv_cache_dtype is not None
+        ring = self.window is not None
         if paged:
             pg = self.kv_page_size
             mp = -(-self.max_decode_len // pg)
             n_pages = self.kv_num_pages if self.kv_num_pages is not None else bsz * mp
             mx = mp * pg
+        elif ring:
+            mx = self.global_prefix + self.window
         else:
             mx = self.max_decode_len
+        has_cache = scoped(scope, "cached_key") in cache
 
         def entry(name, make):
             key = scoped(scope, name)
@@ -418,6 +453,11 @@ class MultiHeadAttention(nn.Module):
                 torch.arange(bsz, device=device)[:, None] * mp
                 + torch.arange(mp, device=device)[None], torch.tensor(
                     n_pages - 1, device=device)).to(torch.int32))
+        elif ring:
+            # The ring is slot-major (B, Hkv, slots, D): its bookkeeping
+            # gathers along the slots, and no kernel reads it.
+            ck = entry("cached_key", zeros(bsz, hkv, mx, d_k_h))
+            cv = entry("cached_value", zeros(bsz, hkv, mx, d_v_h))
         else:
             ck = entry("cached_key", zeros(bsz, hkv, d_k_h, mx))
             cv = entry("cached_value", zeros(bsz, hkv, d_v_h, mx))
@@ -446,8 +486,31 @@ class MultiHeadAttention(nn.Module):
             q_h = apply_rope(q_h, posn, self.rope_base)
             k_h = apply_rope(k_h, posn, self.rope_base)
         k_st, v_st = k_h, v_h
+        k_s = v_s = None
         if quant:
             (k_st, k_s), (v_st, v_s) = _quantize(k_h), _quantize(v_h)
+        if ring:
+            cpos = entry("cache_pos", lambda: torch.full(
+                (bsz, mx), -1, dtype=torch.int32, device=device))
+            if quant:
+                # Attention sees the dequantised values, as a per-token
+                # step would read them back.
+                k_h = (k_st.float() * k_s[..., None]).to(kv_dt)
+                v_h = (v_st.float() * v_s[..., None]).to(kv_dt)
+            if L > 1:
+                if has_cache:
+                    raise ValueError(
+                        "ring-cache prefill requires an EMPTY cache (it "
+                        "overwrites rather than merges) — chunked prefill is "
+                        "dense-cache only")
+                head = self._ring_prefill(q_h, k_h, v_h, d_k)
+                self._ring_fill(L, mx, [(ck, k_st), (cv, v_st), (ksc, k_s),
+                                        (vsc, v_s)], cpos)
+            else:
+                head = self._ring_step(q_h, k_st, v_st, k_s, v_s, d_k, idx, ck,
+                                       cv, ksc, vsc, cpos)
+            cache[scoped(scope, "cache_index")] = idx + L
+            return head
 
         # The chunk arrives (B, Hkv, L, D); the cache is slot-minor.
         writes = [(ck, k_st.permute(0, 2, 1, 3)), (cv, v_st.permute(0, 2, 1, 3))]
@@ -514,6 +577,81 @@ class MultiHeadAttention(nn.Module):
         s = torch.where(keep[:, None, None], self._cap(s), _MASKED)
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhgqk,bhdk->bhgqd", p, vf).reshape(bsz, h, L, d_v_h)
+
+    def _ring_prefill(self, q_h, k_h, v_h, d_k):
+        """The ring's prompt pass over the raw prompt (a window neighbour may
+        sit in a slot that a later prompt token overwrites): banded flash
+        attention with ``use_flash`` (no sinks then), else the dense masked
+        pass with the sinks' escape."""
+        bsz, h, L, d_k_h = q_h.shape
+        hkv, d_v_h = k_h.shape[1], v_h.shape[-1]
+        gp, win = self.global_prefix, self.window
+        if self.use_flash:
+            return flash_attention(q_h, k_h, v_h, softmax_scale=1.0 / math.sqrt(d_k),
+                                   causal=True, window=win,
+                                   logit_softcap=self.logit_softcap)
+        pos = torch.arange(L, device=q_h.device)
+        q_pos, k_pos = pos[:, None], pos[None, :]
+        keep = (k_pos <= q_pos) & ((q_pos - k_pos < win) | (k_pos < gp))
+        qg = q_h.reshape(bsz, hkv, h // hkv, L, d_k_h)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_h) / math.sqrt(d_k)
+        s = torch.where(keep, self._cap(s), _MASKED)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhgqk,bhkd->bhgqd", p, v_h).reshape(bsz, h, L, d_v_h)
+
+    def _ring_fill(self, L, mx, writes, cpos):
+        """After a prefill of L tokens into an empty ring: each slot takes the
+        last prompt position written to it (sink slot s holds position s,
+        ring slot s the largest gp + (s − gp) + k·window below L), and
+        ``cache_pos`` records it; slots no position reached stay empty."""
+        gp, win = self.global_prefix, self.window
+        sl = torch.arange(mx, device=cpos.device)
+        r = sl - gp
+        last = torch.where(sl < gp, sl, gp + r + ((L - 1 - gp - r) // win) * win)
+        valid = torch.where(sl < gp, sl < L, last >= gp)
+        src = last.clamp(0, L - 1)
+        for dest, value in writes:
+            if dest is None:
+                continue
+            picked = value.index_select(2, src)  # (B, Hkv, mx(, D))
+            keep = valid.view((1, 1, mx) + (1,) * (picked.dim() - 3))
+            dest.copy_(torch.where(keep, picked, dest))
+        cpos.copy_(torch.where(valid[None], last.to(torch.int32)[None], cpos))
+
+    def _ring_step(self, q_h, k_st, v_st, k_s, v_s, d_k, idx, ck, cv, ksc, vsc, cpos):
+        """One token a row into the ring: write its slot (a sink below
+        ``global_prefix``, else gp + (idx − gp) mod window), record its
+        position, and attend the occupied slots whose positions are sinks or
+        inside the window. Plain torch on every device: ku reads the ring
+        with XLA, never with its decode kernel."""
+        bsz, h, _, d_k_h = q_h.shape
+        hkv, d_v_h = ck.shape[1], cv.shape[-1]
+        gp, win = self.global_prefix, self.window
+        rows = torch.arange(bsz, device=idx.device)
+        slot = torch.where(idx < gp, idx, gp + (idx - gp).remainder(win)).long()
+        cpos[rows, slot] = idx
+        ck[rows, :, slot] = k_st[:, :, 0]
+        cv[rows, :, slot] = v_st[:, :, 0]
+        if ksc is not None:
+            ksc[rows, :, slot] = k_s[:, :, 0]
+            vsc[rows, :, slot] = v_s[:, :, 0]
+        keep = (cpos >= 0) & ((cpos < gp) | (idx[:, None] - cpos < win))
+        keep = keep[:, None, None, None, :]
+        qg = q_h.reshape(bsz, hkv, h // hkv, 1, d_k_h)
+        kv_dt = q_h.dtype
+        if ksc is not None:
+            # ku's scale-folded int8 read: the int8 cast to the K/V dtype in
+            # the products, the scales on the score and probability slabs.
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg, ck.to(kv_dt)).float()
+            s = self._cap(s * (ksc * (1.0 / math.sqrt(d_k)))[:, :, None, None, :])
+            p = torch.softmax(torch.where(keep, s, _MASKED), dim=-1)
+            pv = (p * vsc[:, :, None, None, :]).to(kv_dt)
+            head = torch.einsum("bhgqk,bhkd->bhgqd", pv, cv.to(kv_dt))
+        else:
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg, ck) / math.sqrt(d_k)
+            p = torch.softmax(torch.where(keep, self._cap(s), _MASKED), dim=-1)
+            head = torch.einsum("bhgqk,bhkd->bhgqd", p, cv)
+        return head.reshape(bsz, h, 1, d_v_h)
 
     def _page_scan(self, qg, ck, cv, ksc, vsc, table, idx, scale, kv_dt):
         """ku's plain per-token read of a pool (its blocked page scan): f32

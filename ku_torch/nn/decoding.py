@@ -1,16 +1,19 @@
 """Autoregressive generation over the KV-cache protocol.
 
-Port of ``ku/nn/decoding.py`` (``generate`` and its samplers). The model
+Port of ``ku/nn/decoding.py``: ``generate`` and its samplers, prefix
+caching (``fork_cache``), speculative decoding and beam search. The model
 contract is ``ku``'s, with the cache explicit: ``model([x], decode=True,
 cache=cache(, prompt_lengths=...))`` returns ``(y, cache)`` for x (B, L, d)
 (:class:`ku_torch.nn.Transformer` and stacks of it do). The caller supplies
 ``embed`` (token ids, positions → embeddings) and ``readout`` (model output
 → vocab logits), as in ``ku``.
 
-``ku`` runs the decode loop as one ``lax.scan`` dispatch; here it is a
-Python loop of single-token steps under ``torch.no_grad()``. Samplers draw
-from a ``torch.Generator`` instead of a ``jax.random`` key, so stochastic
-draws differ from ``ku``'s; greedy decoding and ``top_k=1`` do not.
+``ku`` runs the decode loop as one ``lax.scan`` dispatch (and
+speculative decoding's rounds as a ``while_loop``); here they are Python
+loops under ``torch.no_grad()``. Samplers draw from a ``torch.Generator``
+instead of a ``jax.random`` key, so stochastic draws differ from ``ku``'s;
+greedy decoding, ``top_k=1``, greedy speculative decoding and beam search
+do not.
 """
 
 from __future__ import annotations
@@ -191,3 +194,209 @@ def mask_after_eos(ids, eos_id: int, pad_id: int = 0):
     lengths = torch.where(is_eos.any(dim=1), torch.argmax(is_eos, dim=1) + 1,
                           ids.shape[1])
     return torch.where(seen > 0, pad_id, ids), lengths
+
+
+def _leaf(key: str) -> str:
+    return key.rsplit("/", 1)[-1]
+
+
+def _reject_paged(cache, what: str):
+    """Batch-axis surgery needs every leaf batch-first; a paged cache's pool
+    leaves are page-major and its tables alias pool pages, so forked rows
+    would write into shared pages. Serve paged caches through ``generate``
+    or ``ContinuousBatcher`` instead."""
+    if any(_leaf(k) == "pages_k" for k in cache):
+        raise ValueError(f"{what} does not support paged KV caches "
+                         "(pool leaves are not batch-first)")
+
+
+def fork_cache(cache, n: int):
+    """Prefix caching: each row of a prefilled cache repeated ``n`` times
+    along the batch (every leaf is batch-first, ``cache_index`` included),
+    so that a shared prefix prefilled once at batch B serves B·n divergent
+    continuations. Dense and ring caches only. Returns a new dict."""
+    _reject_paged(cache, "fork_cache")
+    return {k: v.repeat_interleave(n, dim=0) for k, v in cache.items()}
+
+
+def _rewind(cache, delta):
+    """Every layer's ``cache_index`` rolled back by ``delta`` ((B,) int).
+    Free on dense caches: the masks admit only slots below the index, so
+    what lies past it stays unseen until it is overwritten."""
+    return {k: (v - delta).to(v.dtype) if _leaf(k) == "cache_index" else v
+            for k, v in cache.items()}
+
+
+def _categorical(logits, generator):
+    """One draw a row from softmax(logits) (f32)."""
+    return torch.multinomial(torch.softmax(logits.float(), dim=-1), 1,
+                             generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def speculative_generate(model, draft_model, prompt_ids, steps: int, *,
+                         embed: Callable, readout: Callable,
+                         draft_embed: Optional[Callable] = None,
+                         draft_readout: Optional[Callable] = None,
+                         gamma: int = 4, temperature: Optional[float] = None,
+                         generator: Optional[torch.Generator] = None,
+                         model_kwargs: Optional[dict] = None,
+                         draft_model_kwargs: Optional[dict] = None):
+    """Speculative decoding, as ``ku.nn.speculative_generate``: a cheap draft
+    model proposes ``gamma`` tokens a round, the target verifies them in one
+    chunked cache call (a prefill of gamma + 1 tokens at each row's index),
+    and both caches roll back by each row's rejections.
+
+    ``temperature=None``: greedy; the output is the target's greedy
+    continuation (the accepted proposals are the longest prefix whose
+    argmaxes match). ``temperature=T``: speculative sampling; the draft
+    samples at T, a proposal x is accepted when u·max(q(x), ε) < p(x), a
+    rejection draws from the normalised residual max(p − q, 0), and after a
+    fully accepted round (or a degenerate residual) the bonus token comes
+    from p, so the output follows the target's sampling at T. Draws come
+    from ``generator`` (seed 0 on the prompt's device by default).
+
+    Each round feeds the draft gamma + 1 tokens (the pending token and its
+    gamma proposals), so its cache also holds the last proposal and both
+    caches rewind by the same count. Uniform prompt lengths; dense or paged
+    caches (a ring cannot rewind). Size ``max_decode_len`` on both models
+    for prompt + steps + gamma + 1. ``embed`` receives (B, L) positions
+    (rows diverge) as well as the prompt's (P,).
+
+    Returns ((B, steps) ids, (B,) f32 mean tokens accepted a round)."""
+    kw = dict(model_kwargs or {})
+    dkw = dict(draft_model_kwargs or {})
+    d_embed = draft_embed if draft_embed is not None else embed
+    d_readout = draft_readout if draft_readout is not None else readout
+    stochastic = temperature is not None
+    temp = max(temperature, 1e-6) if stochastic else 1.0
+    device = prompt_ids.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    bsz, p = prompt_ids.shape
+    cap = steps + gamma + 1
+    eps = 1e-9
+    ar = torch.arange(p, device=device)
+    y, tcache = model([embed(prompt_ids, ar)], decode=True, cache={}, **kw)
+    _, dcache = draft_model([d_embed(prompt_ids, ar)], decode=True, cache={}, **dkw)
+    logits0 = readout(y[:, -1:])[:, 0]
+    pending = (_categorical(logits0 / temp, generator) if stochastic
+               else torch.argmax(logits0, dim=-1))
+    buf = torch.zeros(bsz, cap, dtype=torch.int64, device=device)
+    buf[:, 0] = pending
+    count = torch.ones(bsz, dtype=torch.int64, device=device)
+    rounds = 0
+    rows = torch.arange(bsz, device=device)
+    j = torch.arange(gamma + 1, device=device)
+    while int(count.min()) < steps:
+        base = p + count - 1  # (B,) global position of the pending token
+        # The draft: gamma proposals and one more feed, each step's
+        # distribution kept (stochastic acceptance needs q).
+        tok, toks, qs = pending, [], []
+        for i in range(gamma + 1):
+            yd, dcache = draft_model([d_embed(tok[:, None], (base + i)[:, None])],
+                                     decode=True, cache=dcache, **dkw)
+            lg = d_readout(yd)[:, 0] / temp
+            toks.append(tok)
+            qs.append(torch.softmax(lg.float(), dim=-1))
+            tok = _categorical(lg, generator) if stochastic else torch.argmax(lg, dim=-1)
+        chunk = torch.stack(toks, 1)  # (B, gamma+1): pending, d_1..d_gamma
+        qdist = torch.stack(qs, 1)  # (B, gamma+1, V)
+        # The target verifies every proposal in one chunk.
+        yt, tcache = model([embed(chunk, base[:, None] + j[None])], decode=True,
+                           cache=tcache, **kw)
+        t_logits = readout(yt) / temp  # (B, gamma+1, V)
+        d = chunk[:, 1:]
+        if stochastic:
+            pdist = torch.softmax(t_logits.float(), dim=-1)
+            p_d = pdist[:, :gamma].gather(-1, d[..., None])[..., 0]
+            q_d = qdist[:, :gamma].gather(-1, d[..., None])[..., 0]
+            u = torch.rand(d.shape, generator=generator, device=device)
+            ok = (u * q_d.clamp_min(eps) < p_d).to(torch.int64)
+            acc = torch.cumprod(ok, dim=1).sum(dim=1)  # (B,) in [0, gamma]
+            p_acc, q_acc = pdist[rows, acc], qdist[rows, acc]  # (B, V)
+            resid = (p_acc - q_acc).clamp_min(0.0)
+            rsum = resid.sum(-1, keepdim=True)
+            use_p = (acc[:, None] == gamma) | (rsum <= eps)
+            dist = torch.where(use_p, p_acc, resid / rsum.clamp_min(eps))
+            bonus = torch.multinomial(dist.clamp_min(1e-30), 1, generator=generator)[:, 0]
+        else:
+            g = torch.argmax(t_logits, dim=-1)  # (B, gamma+1)
+            match = (d == g[:, :-1]).to(torch.int64)
+            acc = torch.cumprod(match, dim=1).sum(dim=1)
+            bonus = g[rows, acc]
+        # Commit d_1..d_acc, then the bonus; what lies past them is
+        # overwritten by later rounds. The start is clamped so the round
+        # fits (as ku's dynamic_update_slice), for rows already done.
+        w = torch.where(j[None] < acc[:, None], torch.cat([d, torch.zeros_like(d[:, :1])], 1),
+                        bonus[:, None])
+        start = count.clamp(max=cap - gamma - 1)
+        buf[rows[:, None], start[:, None] + j[None]] = w
+        delta = gamma - acc
+        tcache, dcache = _rewind(tcache, delta), _rewind(dcache, delta)
+        count = count + acc + 1
+        pending = bonus
+        rounds += 1
+    mean_accepted = (count - 1).float() / max(rounds, 1)
+    return buf[:, :steps], mean_accepted
+
+
+def _top_k(x, k: int):
+    """The k largest entries along the last axis and their indices, ties to
+    the lower index, as ``jax.lax.top_k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_search(model, prompt_ids, steps: int, *, embed: Callable,
+                readout: Callable, beam_size: int,
+                model_kwargs: Optional[dict] = None):
+    """Fixed-length beam search over the cache protocol, as
+    ``ku.nn.beam_search``: the prompt prefills once at batch B, the cache
+    forks to B·beam_size rows, and each step gathers every cache leaf by the
+    surviving beams' rows (b·K + parent): switching hypotheses is a gather,
+    never a recompute. Beams score by their total log-probability; uniform
+    prompt lengths, no EOS. ``beam_size`` may exceed the vocabulary: the
+    first expansion is padded with −inf hypotheses that are never chosen
+    over live ones.
+
+    Returns (ids (B, beam_size, steps), scores (B, beam_size)), best first."""
+    kw = dict(model_kwargs or {})
+    K = beam_size
+    device = prompt_ids.device
+    bsz, p = prompt_ids.shape
+    y, cache = model([embed(prompt_ids, torch.arange(p, device=device))],
+                     decode=True, cache={}, **kw)
+    logp = torch.log_softmax(readout(y[:, -1:])[:, 0], dim=-1)  # (B, V)
+    vocab = logp.shape[-1]
+    if K > vocab:
+        pad = torch.full((bsz, K - vocab), float("-inf"), dtype=logp.dtype,
+                         device=device)
+        scores, tok = _top_k(torch.cat([logp, pad], -1), K)
+        tok = torch.where(tok < vocab, tok, 0)
+    else:
+        scores, tok = _top_k(logp, K)  # (B, K)
+    cache = fork_cache(cache, K)  # one row a hypothesis: (B·K, ...)
+    toks, parents = [], []
+    base = torch.arange(bsz, device=device)[:, None] * K
+    for i in range(steps - 1):
+        y, cache = model([embed(tok.reshape(-1, 1), torch.tensor([p + i], device=device))],
+                         decode=True, cache=cache, **kw)
+        logp = torch.log_softmax(readout(y)[:, 0], dim=-1)  # (B·K, V)
+        cand = scores[..., None] + logp.reshape(bsz, K, vocab)
+        scores, flat = _top_k(cand.reshape(bsz, K * vocab), K)
+        parent, nxt = flat // vocab, flat % vocab  # (B, K)
+        gidx = (base + parent).reshape(-1)
+        cache = {k: v[gidx] for k, v in cache.items()}
+        toks.append(tok)
+        parents.append(parent)
+        tok = nxt
+    # Backtrack from the final (sorted) beams along the parent pointers.
+    ptr = torch.arange(K, device=device)[None].expand(bsz, K)
+    rev = []
+    for tok_t, parent_t in zip(reversed(toks), reversed(parents)):
+        ptr = parent_t.gather(1, ptr)
+        rev.append(tok_t.gather(1, ptr))
+    ids = torch.stack(rev[::-1] + [tok], dim=2)  # (B, K, steps)
+    return ids, scores

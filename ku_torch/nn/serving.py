@@ -186,7 +186,9 @@ class ContinuousBatcher:
     def _build_spec(self):
         """One throwaway prefill of all B slots discovers the cache's entries
         and shapes, the vocabulary width and the cache geometry (dense
-        length, or pool pages, page size and table width)."""
+        length, or pool pages, page size and table width). It is a uniform
+        prefill, so that a ring cache gets as far as showing its
+        ``cache_pos`` entry, which is refused here with ``ku``'s message."""
         B, P, dev = self.num_slots, self.prompt_len, self._device
         x = self._embed(torch.zeros(B, P, dtype=torch.int64, device=dev),
                         torch.arange(P, device=dev))
@@ -194,10 +196,12 @@ class ContinuousBatcher:
             # The identity table's aliasing warning does not apply: the
             # scheduler writes every table before real use.
             warnings.filterwarnings("ignore", message=".*ALIASES.*")
-            y, cache = self._model([x], decode=True, cache={},
-                                   prompt_lengths=torch.ones(B, dtype=torch.int32,
-                                                             device=dev),
-                                   **self._kw)
+            y, cache = self._model([x], decode=True, cache={}, **self._kw)
+        if any(_leaf(k) == "cache_pos" for k in cache):
+            raise ValueError(
+                "ContinuousBatcher does not support ring (window) caches — "
+                "their slot contents depend on global position history and "
+                "cannot be row-merged")
         self._vocab = self._readout(y[:, :1]).shape[-1]
         self._spec = {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
         pools = {shape[0::3] for k, (shape, _) in self._spec.items()

@@ -4,8 +4,8 @@ Port of ``ku/nn/transformer.py``:
 
 - :class:`Transformer`: 2 × (MHA + dropout + residual + LayerNorm), then a
   4×-wide swish FFN + dropout + residual + LayerNorm; forwards the
-  attention options, including the KV-cache decode protocol (dense, paged
-  or int8 caches) and a block-sparse ``block_mask``.
+  attention options, including the KV-cache decode protocol (dense, paged,
+  ring or int8 caches), int8 weights and a block-sparse ``block_mask``.
 - :class:`InterferedTransformer`: the same conditioned on a per-sample
   embedding, tiled over the sequence and concatenated before a relu FFN.
 
@@ -33,6 +33,7 @@ from ku_torch.nn.attention import (
     scoped,
     trunc_normal,
 )
+from ku_torch.nn.quant import QuantDense
 
 # flax's lecun_normal draws a normal cut at ±2 and rescales it by this
 # (the standard deviation of N(0, 1) truncated to [-2, 2]).
@@ -85,8 +86,10 @@ class Transformer(nn.Module):
     need it). ``device``, ``dtype`` and ``generator`` place and draw the
     initial weights. The call's ``block_mask`` goes to both attention
     sublayers, as in ``ku``, and with it the layer's ``causal`` must be the
-    mask's and ``window`` / ``global_prefix`` unset. Options that are not
-    ported raise ``NotImplementedError`` (see :mod:`ku_torch.nn.attention`)."""
+    mask's and ``window`` / ``global_prefix`` unset. ``quant_weights``
+    makes the four projections of each attention sublayer and the two FFN
+    kernels int8 (``Dense_0`` / ``Dense_1`` become
+    :class:`ku_torch.nn.quant.QuantDense`), as in ``ku``."""
 
     def __init__(self, num_head: int, d_output: int, dropout_rate: float = 0.0,
                  similarity_type: str = SIMILARITY_TYPE_SCALED,
@@ -119,8 +122,14 @@ class Transformer(nn.Module):
         if layer_norm_f:
             for j in range(3):
                 self.add_module(f"LayerNorm_{j}", LayerNorm(d_output, 1e-6, **kw))
-        self.Dense_0 = Dense(d_output, 4 * d_output, generator=generator, **kw)
-        self.Dense_1 = Dense(4 * d_output, d_output, generator=generator, **kw)
+        if quant_weights:
+            # int8 FFN kernels under flax's names, as ku's QuantDense.
+            aq = quant_weights == "w8a8"
+            self.Dense_0 = QuantDense(d_output, 4 * d_output, act_quant=aq, **kw)
+            self.Dense_1 = QuantDense(4 * d_output, d_output, act_quant=aq, **kw)
+        else:
+            self.Dense_0 = Dense(d_output, 4 * d_output, generator=generator, **kw)
+            self.Dense_1 = Dense(4 * d_output, d_output, generator=generator, **kw)
 
     def _drop(self, x, deterministic):
         if self.dropout_rate > 0.0 and not deterministic:

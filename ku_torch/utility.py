@@ -86,7 +86,8 @@ def state_dict_from_tree(tree, device="cuda", batch_stats=None) -> Dict[str, tor
     ``block0/MultiHeadAttention_1/W_Q``) → a flat state dict of tensors on
     ``device``, keyed ``block0.MultiHeadAttention_1.W_Q``, which the port's
     modules load with ``load_state_dict(..., strict=True)``. Layouts and
-    dtypes stay ``ku``'s (bf16 bit for bit). ``batch_stats``, ``ku``'s
+    dtypes stay ``ku``'s (bf16 bit for bit; a quantized model's int8
+    kernels and f32 ``<name>_scale`` leaves too). ``batch_stats``, ``ku``'s
     collection of that name (``truncation/moving_mean``), joins under the
     same naming: the port keeps it in buffers (``truncation.moving_mean``)."""
     flat = _flatten(tree)

@@ -245,16 +245,23 @@ def test_decode_through_both_kernels_matches_ku_interpret(rng):
 
 
 def test_features_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        Transformer(2, 8, causal=True, max_decode_len=8, device="cpu",
-                    quant_weights=True)
-    for kw in (dict(kv_page_size=4), dict(kv_cache_dtype="int8")):  # ported
+    from ku_torch.nn import ContinuousBatcher
+
+    block = Transformer(2, 8, causal=True, max_decode_len=8, device="cpu")
+    with pytest.raises(NotImplementedError):  # the multi-device batcher
+        ContinuousBatcher(block, embed=None, readout=None, num_slots=2,
+                          prompt_len=4, max_decode_len=8, mesh=object())
+    # Ported: paged and int8 caches, int8 weights (tests/test_torch_quant.py).
+    for kw in (dict(kv_page_size=4), dict(kv_cache_dtype="int8"),
+               dict(quant_weights=True), dict(quant_weights="w8a8")):
         Transformer(2, 8, causal=True, max_decode_len=8, device="cpu", **kw)
     x = torch.zeros(1, 3, 8)
+    # Ported: the ring cache (tests/test_torch_ring_cache.py).
     ring = MultiHeadAttention(2, 8, causal=True, window=2, max_decode_len=8,
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        ring([x, x, x], decode=True)
+    with torch.no_grad():
+        _, cache = ring([x, x, x], decode=True)
+    assert cache["cache_pos"].tolist() == [[2, 1]]  # slot s: the last position s + 2k
     # block_mask is ported (tests/test_torch_sparse_*.py): a real mask works.
     mha = MultiHeadAttention(2, 8, causal=True, device="cpu")
     mask = make_block_mask(4, block_q=2, block_k=2, causal=True, window=2,

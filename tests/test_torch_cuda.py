@@ -1563,3 +1563,108 @@ def test_resize_on_the_card_matches_the_cpu(device):
         want = resize_batch(imgs, size)
         assert got.device.type == "cuda"
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The rest of serving: int8 weights, the ring cache, beam search.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(2048, 512), (64, 48), (40, 20)])
+def test_int8_act_matmul_pads_its_rows_on_the_card(device, dtype, k, n):
+    """torch._int_mm on the card takes more than 16 rows (and a K, N it has a
+    product for): a decode step's 8 rows are padded and sliced off, and the
+    product equals the CPU's: in f32 to 1e-6, in bf16 to one bf16 ulp. (A
+    scale divided by the Python number 127 on the card is a product with
+    its reciprocal, an ulp off the CPU's quotient; bf16 inputs then land
+    on rounding ties that flip whole int8 steps. The port divides by a
+    tensor.)"""
+    from ku_torch.nn import int8_act_matmul
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(8, 1, k)).astype(np.float32)).to(dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(0.01, 0.05, size=(n,)).astype(np.float32))
+    padded, calls = int8_act_matmul.padded, int8_act_matmul.int_mm_calls
+    got = int8_act_matmul(x.to(device), wq.to(device), sc.to(device))
+    assert int8_act_matmul.padded == padded + 1
+    assert int8_act_matmul.int_mm_calls == calls + 1
+    want = int8_act_matmul(x, wq, sc)
+    assert got.shape == (8, 1, n) and got.dtype == dtype
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(rtol=2**-8, atol=1e-6)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def _twin(cls, device, *args, **kw):
+    cpu = cls(*args, device="cpu", generator=torch.Generator().manual_seed(0), **kw)
+    card = cls(*args, device=device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@torch.no_grad()
+def test_ring_prefill_launches_flash_and_its_steps_no_decode_kernel(device):
+    """A ring with use_flash: the banded prefill is one flash launch, the
+    per-token steps read the ring in plain torch (no decode kernel), and
+    every output equals the CPU's."""
+    from ku_torch.kernels import decode_attention as da
+    from ku_torch.kernels import flash_attention as fa
+    from ku_torch.nn import MultiHeadAttention
+
+    cpu, card = _twin(MultiHeadAttention, device, 4, 64, 0.0, causal=True, window=16,
+                      num_kv_head=2, use_flash=True, rope=True)
+    x = torch.randn(2, 60, 64, generator=torch.Generator().manual_seed(1))
+    flash, dec = fa.flash_fwd_cuda.launches, da.decode_attention_cuda.launches
+    xc = x.to(device)
+    chunk, chunk_c = x[:, :40], xc[:, :40]
+    want, cache = cpu([chunk, chunk, chunk], decode=True)
+    got, cache_c = card([chunk_c, chunk_c, chunk_c], decode=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert fa.flash_fwd_cuda.launches == flash + 1
+    for i in range(40, 60):
+        tok, tok_c = x[:, i:i + 1], xc[:, i:i + 1]
+        want, cache = cpu([tok, tok, tok], decode=True, cache=cache)
+        got, cache_c = card([tok_c, tok_c, tok_c], decode=True, cache=cache_c)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert da.decode_attention_cuda.launches == dec
+    assert torch.equal(cache_c["cache_pos"].cpu(), cache["cache_pos"])
+    assert tuple(cache_c["cached_key"].shape) == (2, 2, 16, 16)
+
+
+def test_beam_steps_launch_the_decode_kernel(device):
+    """Each beam step reads the forked, regathered cache through the dense
+    decode kernel (one launch an attention sublayer), and the beams equal
+    the CPU's."""
+    from ku_torch.kernels import decode_attention as da
+    from ku_torch.nn import Transformer, beam_search
+
+    cpu, card = _twin(Transformer, device, 4, 64, 0.0, causal=True, num_kv_head=2,
+                      max_decode_len=24, rope=True)
+    table = torch.randn(11, 64, generator=torch.Generator().manual_seed(2))
+    table_c = table.to(device)
+    ids = torch.randint(0, 11, (2, 8), generator=torch.Generator().manual_seed(3))
+    dec = da.decode_attention_cuda.launches
+    got, got_s = beam_search(card, ids.to(device), 6, beam_size=3,
+                             embed=lambda i, p=None: table_c[i],
+                             readout=lambda y: y @ table_c.T)
+    assert da.decode_attention_cuda.launches == dec + 2 * 5
+    want, want_s = beam_search(cpu, ids, 6, beam_size=3, embed=lambda i, p=None: table[i],
+                               readout=lambda y: y @ table.T)
+    assert torch.equal(got.cpu(), want)
+    torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_quantize_weights_on_the_card_equals_the_cpu(device):
+    """Scales and int8 kernels quantized on the card equal the CPU's (and so
+    ku's) bit for bit, an all-zero column included."""
+    from ku_torch.nn import QuantDense, quantize_weights
+
+    w = torch.randn(96, 40, generator=torch.Generator().manual_seed(4))
+    w[:, 3] = 0.0
+    sd = {"kernel": w, "bias": torch.zeros(40)}
+    want = quantize_weights(sd, QuantDense(96, 40, device="cpu"))
+    got = quantize_weights({k: v.to(device) for k, v in sd.items()},
+                           QuantDense(96, 40, device=device))
+    for name, value in want.items():
+        assert torch.equal(got[name].cpu(), value), name
