@@ -407,6 +407,45 @@ Phases (any failure raises and the script exits non-zero):
    generate example's greedy and beam accuracies at least 0.9 and
    greedy-exact=True; the classifier's loss finite and falling.
 
+36. The NobodyConvNet backbones (no kernel of their own: cuDNN and torch
+   ops). nobody_convnet2d_mnist's classifier at its conf (28 x 28 x 1,
+   sp_feature_dim 32, batch 64, AdamW 1e-3 with weight decay 1e-4, BN
+   momentum 0.9), f32 on the card with TF32 off against the same weights
+   in float64 on the CPU at 16 images: one training-mode forward (the
+   output and the batch statistics) and one AdamW step (the loss, the
+   statistics and every parameter) within 1e-4 of each tensor's largest
+   entry (the parameters plus Adam's allowance for a gradient within its
+   tolerance of 0, see adam_params_close). The same for NobodyConvNet3D at
+   (2, 64, 64, 64, 1), depth 2, and its step timed. Then the example's
+   main on the 60,032 MNIST-like rows, 1 epoch of the conf's 6 (938
+   steps): training-set accuracy above 0.5, solution.csv of 60,032 rows;
+   both backbones' ms a step and images/s (median of 20 steps), peak
+   memory, one profiled step's device ops and busy share; a
+   `nobody_convnet` JSON line.
+37. gan_mnist and pix2pix at their confs (5 x 50 steps at batch 128, and 3
+   x 30 at batch 64 with L1 weight 100), each through its main on the
+   MNIST-like rows after one step of its engine held in f32 against
+   float64 on the CPU (losses and Adam's moments within 1e-4, parameters
+   as in phase 36): ms a step, images/s ((k + 1)·B a step), the samples'
+   range and inter-sample std, the masked-region L1 against the blank
+   input's; a `gan_examples` JSON line.
+38. I/O: export_fn -> load_exported of phase 36's classifier in inference
+   mode on the card, equal within rtol 1e-6; exporting a use_flash
+   attention block refused with KernelTraceError naming flash_fwd_cuda;
+   where h5py is installed, phase 4's fitted RBM through
+   save_reference_rbm_h5 / load_reference_rbm_h5 (weights equal, the
+   visible bias zeros) into an RBM fit one epoch: kernel #1 launches once
+   (its count set to 0 just before). Where h5py is absent, one line says
+   so.
+39. The native C++ loader (ku_torch/csrc/loader.cpp, built by g++ into
+   ku_torch/_build/): 512 uint8 images of mixed sizes into 128 x 128 x 3
+   letterboxes at 4 threads against tests/test_native_loader.py's oracle
+   within 1e-4, in submit order, letterbox rows zero; images/s at 1 and 4
+   threads beside ku_torch.image_utils' Python letterbox, host numbers with
+   the host CPU's name; with libpng, 60 digit PNGs as phase 30 writes them
+   decoded in the workers equal bit for bit to read_png's pixels; a
+   `native_loader` JSON line.
+
 The last lines are the `kernels` JSON line (10 kernels), the card's name
 and power limit, and {"ok": true, "device": {...}}.
 """
@@ -416,10 +455,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import glob
 import itertools
 import json
 import math
 import os
+import platform
 import re
 import shutil
 import signal
@@ -437,25 +478,38 @@ import torch.distributed as dist
 
 from examples_torch import common
 from examples_torch.autoencoder import autoencoder_mnist
+from examples_torch.gan import gan_mnist
+from examples_torch.mnist_digit_classfication import nobody_convnet2d_mnist
+from examples_torch.pix2pix import pix2pix
 from examples_torch.rbm import dbn_mnist, rbm_softmax_mnist
 from examples_torch.style_based_gan import style_based_gan as sg_example
 from examples_torch.style_based_gan import style_based_gan_trainer as sg_tuner
 from examples_torch.style_based_gan import train_digits
+from ku_torch import native
+from ku_torch.applications_ext import NobodyConvNet3D
 from ku_torch.backprop import GAN, STYLE_GAN_SOFTPLUS_INVERSE_R1_GP, make_autoencoder_from_encoder
 from ku_torch.core.config import load_config
 from ku_torch.dist import make_mesh
 from ku_torch.ebm import DBN, RBM
 from ku_torch.engine_ext import Trainer, adam, spec
-from ku_torch.image_utils import read_png
-from ku_torch.io import CheckpointManager
+from ku_torch.image_utils import read_png, resize_image_to_target_symmeric_size
+from ku_torch.io import (
+    CheckpointManager,
+    export_fn,
+    load_exported,
+    load_reference_rbm_h5,
+    save_reference_rbm_h5,
+)
 from ku_torch.io.checkpoint import packed, trees_equal
 from ku_torch.kernels import _build, cd_gibbs, cd_gibbs_dp
+from ku_torch.kernels._build import KernelTraceError
 from ku_torch.kernels import decode_attention as da
 from ku_torch.kernels import flash_attention as fa
 from ku_torch.kernels import sparse_attention as sa
 from ku_torch.loss_ext import gradient_penalty, r1_penalty
 from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator
 from ku_torch.nn import (
+    BatchNorm,
     ContinuousBatcher,
     MultiHeadAttention,
     QuantDense,
@@ -4728,6 +4782,479 @@ def digits_and_tuner(dev, name):
         f"{best_hps} (score {best_score:.4f})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-39: the NobodyConvNet backbones, the GAN examples, I/O, the loader
+# ---------------------------------------------------------------------------
+
+# Phase 36: the classifier at nobody_convnet2d_mnist_conf.json (28 x 28 x 1,
+# sp_feature_dim 32, batch 64, AdamW 1e-3 with weight decay 1e-4, BN
+# momentum 0.9), one epoch of the conf's 6 (CONVNET_EPOCHS, a cut in scale);
+# the f32 checks at CONVNET_CHECK_B images within CONVNET_REL of each
+# tensor's largest float64 entry; NobodyConvNet3D at CONVNET3D_SHAPE, depth
+# CONVNET3D_DEPTH; CONVNET_REPS steps timed one by one after CONVNET_WARM.
+CONVNET_EPOCHS, CONVNET_CHECK_B, CONVNET_REL, CONVNET_WARM, CONVNET_REPS = 1, 16, 1e-4, 3, 20
+# The gradients' tolerance behind Adam's allowance (adam_params_close):
+# cuDNN's f32 convolutions, phase 27's GAN_GRAD_REL.
+CONVNET_GRAD_REL = GAN_GRAD_REL
+CONVNET3D_SHAPE, CONVNET3D_DEPTH = (2, 64, 64, 64, 1), 2
+# Phase 37: the GAN examples' f32 step against float64 (GAN_EX_CHECK_B rows,
+# the conf's own batch for the runs), within CONVNET_REL.
+GAN_EX_CHECK_B = 16
+# Phase 39: the loader's images (LOADER_N of mixed sizes into
+# LOADER_SIZE x LOADER_SIZE x 3 letterboxes), the decoded PNGs' count.
+LOADER_N, LOADER_SIZE, LOADER_PNGS = 512, 128, 60
+
+
+def module_close(got_module, want_module, what, rel=CONVNET_REL):
+    """Every parameter and buffer of two modules within rel of the largest
+    entry of the float64 one's; returns the worst share of the largest
+    entry."""
+    got = dict(itertools.chain(got_module.named_parameters(), got_module.named_buffers()))
+    worst = 0.0
+    for n, want in itertools.chain(want_module.named_parameters(),
+                                   want_module.named_buffers()):
+        err = rel_err(got[n], want)
+        check(err <= rel, f"{what}: {n} f32 on the card against float64 on the CPU "
+              f"{err:.3e} > {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def adam_params_close(module, ref, before, optimizer, lr, b2, what, rel=CONVNET_REL):
+    """Parameters after one Adam(W) step, f32 on the card against float64 on
+    the CPU: within rel of the tensor's largest float64 entry, plus f32's
+    rounding, plus what a gradient known to CONVNET_GRAD_REL of its tensor's
+    largest entry moves Adam's first update, lr·g/(|g| + ε), by:
+    lr·min(2, CONVNET_GRAD_REL·max|g| / (|g| + ε)). That allowance bites only
+    where a gradient sits within its tolerance of 0 (a BatchNorm scale that
+    a later BatchNorm makes scale-invariant has a gradient of 0 in exact
+    arithmetic, and moves by its rounding's sign). Returns the largest
+    share of its tolerance an entry takes."""
+    got = dict(module.named_parameters())
+    worst = 0.0
+    for n, p in ref.named_parameters():
+        state = optimizer.state[p]
+        check(int(state["step"]) == 1, f"{what}: {n} took {int(state['step'])} steps")
+        g = (state["exp_avg_sq"] / (1.0 - b2)).sqrt()  # |g| of the one step
+        tol = (rel * p.detach().abs().max() + 2.0 ** -23 * before[n].abs()
+               + lr * torch.clamp(CONVNET_GRAD_REL * g.max() / (g + 1e-8), max=2.0))
+        err = (got[n].detach().double().cpu() - p.detach()).abs()
+        ratio = float((err / tol).max())
+        check(ratio <= 1.0, f"{what}: {n} after the step, f32 on the card against float64 "
+              f"on the CPU, {float(err.max()):.3e} ({ratio:.3f} of its tolerance)")
+        worst = max(worst, ratio)
+    return worst
+
+
+def step_timing(card, what, step, batch):
+    """ms a step (median of CONVNET_REPS, each timed alone by CUDA events,
+    after CONVNET_WARM), images/s, the peak memory above the model, and one
+    profiled step's device ops and busy share."""
+    for _ in range(CONVNET_WARM):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(CONVNET_REPS):
+        times.append(timed_ms(step, 1))
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = float(np.median(times))
+    wall, rows, clocks = profiled(step)
+    log_profile(f"{what}, one step", wall, rows, clocks)
+    busy = sum(r[0] for r in rows) / (wall * 1e6)
+    row = {"ms_per_step": ms, "images_per_s": batch / (ms / 1e3),
+           "peak_mib_above_model": peak / 2 ** 20, "device_ops": sum(r[1] for r in rows),
+           "busy": busy, "card": card}
+    log(f"{what}: {ms:.4f} ms a step (median of {CONVNET_REPS}, CUDA events), "
+        f"{row['images_per_s']:.1f} images/s at batch {batch}, peak {gib(peak)} above the "
+        f"model, {row['device_ops']} device ops, busy {busy:.3f}; {card}")
+    return row
+
+
+def stats_close(got_module, want_module, what, rel=CONVNET_REL):
+    """Every BatchNorm's running statistics after one training-mode call
+    from their initial (0, 1), f32 on the card against float64 on the CPU.
+    A batch's mean and variance are averages of activations held at rel of
+    their own magnitude, so the call's share of the running mean, (1 - m)
+    times the batch mean, is held within (1 - m)·rel of the largest RMS
+    activation sqrt(E[x²]) of its layer, and the running variance within
+    (1 - m)·2·rel of the largest E[x²] (flax's fast variance, E[x²] - E[x]²,
+    cancels: a channel whose mean is large against its spread loses digits
+    that a share of its largest entry would not forgive), each plus f32's
+    rounding of the stored value. Returns the largest share of its
+    tolerance a statistic takes."""
+    got = dict(got_module.named_modules())
+    worst = 0.0
+    for n, bn in want_module.named_modules():
+        if not isinstance(bn, BatchNorm):
+            continue
+        m = bn.momentum
+        mean_b = bn.mean / (1.0 - m)
+        sq_b = (bn.var - m) / (1.0 - m) + mean_b * mean_b  # E[x²] of the batch
+        for key, share in (("mean", (1.0 - m) * rel * float(sq_b.max().sqrt())),
+                           ("var", (1.0 - m) * 2.0 * rel * float(sq_b.max()))):
+            want = getattr(bn, key)
+            # plus the f32 rounding of the stored value (m·r + (1 - m)·b rounds twice)
+            tol = share + 2.0 ** -22 * want.abs()
+            err = (getattr(got[n], key).double().cpu() - want).abs()
+            ratio = float((err / tol).max())
+            check(ratio <= 1.0, f"{what}: {n}.{key} f32 on the card against float64 on the "
+                  f"CPU {float(err.max()):.3e}, {ratio:.3f} of its tolerance")
+            worst = max(worst, ratio)
+    return worst
+
+
+def convnet_check(dev, make, x64, y, loss_fn, what):
+    """One training-mode forward (batch statistics included) and one AdamW
+    step of `make(device, dtype)`'s model, f32 on the card (TF32 off)
+    against the same weights in float64 on the CPU."""
+    hps = load_config(nobody_convnet2d_mnist.CONF_PATH)["hps"]
+    ref = make("cpu", torch.float64)
+    model = copy.deepcopy(ref).to(dev, torch.float32)
+    # The forward alone, in training mode, on copies (it moves the stats).
+    fwd_ref, fwd = copy.deepcopy(ref), copy.deepcopy(model)
+    with torch.no_grad():
+        out_err = rel_err(fwd(x64.to(dev, torch.float32), deterministic=False),
+                          fwd_ref(x64, deterministic=False))
+    check(out_err <= CONVNET_REL, f"{what}: training-mode output {out_err:.3e}")
+    stats_err = stats_close(fwd, fwd_ref, what)
+    before = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    adamw = nobody_convnet2d_mnist.adamw(hps)
+    trainers = [Trainer(m, loss_fn, optimizer=adamw, has_batch_stats=True)
+                for m in (ref, model)]
+    losses = [t._train_step(x, y.to(x.device))[0] for t, x in
+              zip(trainers, (x64, x64.to(dev, torch.float32)))]
+    torch.cuda.synchronize()
+    loss_err = abs(float(losses[1]) - float(losses[0])) / abs(float(losses[0]))
+    check(loss_err <= CONVNET_REL, f"{what}: the step's loss {loss_err:.3e}")
+    stats_step = stats_close(model, ref, f"{what}, the step")
+    share = adam_params_close(model, ref, before, trainers[0].optimizer, hps["lr"],
+                              hps["beta_2"], what)
+    log(f"{what}: f32 on the card (TF32 off) against float64 on the CPU, {tuple(x64.shape)}: "
+        f"training-mode output {out_err:.3e} of its largest entry (limit {CONVNET_REL}), "
+        f"batch statistics at most {stats_err:.3f} of their tolerance ({CONVNET_REL} of the "
+        f"layer's activations, stats_close); one AdamW step: loss {loss_err:.3e}, batch "
+        f"statistics {stats_step:.3f} of their tolerance, parameters at most {share:.3f} of "
+        f"their tolerance ({CONVNET_REL} of the largest entry plus Adam's allowance)")
+    return model, trainers[1]
+
+
+def convnet_path(dev, card):
+    """Phase 36; returns the trained classifier (phase 38 exports it)."""
+    conf = load_config(nobody_convnet2d_mnist.CONF_PATH)
+    V, gt = common.mnist_like()
+    X = V.reshape(-1, 28, 28, 1)
+
+    def make2d(device, dtype):
+        return nobody_convnet2d_mnist.ConvNetClassifier(
+            conf, (CONVNET_CHECK_B, 28, 28, 1), device=device, dtype=dtype,
+            generator=torch.Generator().manual_seed(36))
+
+    convnet_check(dev, make2d, torch.from_numpy(X[:CONVNET_CHECK_B]).double(),
+                  torch.from_numpy(gt[:CONVNET_CHECK_B]), nobody_convnet2d_mnist.loss_fn,
+                  "NobodyConvNet2D classifier")
+
+    def make3d(device, dtype):
+        return NobodyConvNet3D.from_conf(conf, CONVNET3D_SHAPE, depth=CONVNET3D_DEPTH,
+                                         device=device, dtype=dtype,
+                                         generator=torch.Generator().manual_seed(37))
+
+    x3 = torch.from_numpy(np.random.default_rng(36).standard_normal(CONVNET3D_SHAPE)).double()
+    sq = lambda y, p: (p * p).flatten(1).mean(dim=1)  # noqa: E731
+    model3d, trainer3d = convnet_check(dev, make3d, x3, torch.zeros(CONVNET3D_SHAPE[0]), sq,
+                                       f"NobodyConvNet3D depth {CONVNET3D_DEPTH}")
+    x3d = x3.to(dev, torch.float32)
+    y3d = torch.zeros(CONVNET3D_SHAPE[0], device=dev)
+    row3d = step_timing(card, f"NobodyConvNet3D {CONVNET3D_SHAPE}, depth "
+                        f"{CONVNET3D_DEPTH}, AdamW step", lambda: trainer3d._train_step(x3d, y3d),
+                        CONVNET3D_SHAPE[0])
+    del model3d, trainer3d
+    torch.cuda.empty_cache()
+
+    hps = conf["hps"]
+    log(f"nobody_convnet2d_mnist at its conf (batch {hps['batch_size']}, AdamW "
+        f"{hps['lr']} wd {hps['weight_decay']}, BN momentum {hps['bn_momentum']}), "
+        f"{CONVNET_EPOCHS} epoch of the conf's {hps['epochs']} on {len(V)} MNIST-like rows:")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "solution.csv")
+        res = nobody_convnet2d_mnist.main(device=dev, V=X, gt=gt, epochs=CONVNET_EPOCHS,
+                                          out_path=out_path)
+        sol = read_solution(out_path, len(V))
+    check(sol.shape == (len(V),), f"solution.csv holds {sol.shape} rows")
+    check(all(math.isfinite(h) for h in res["history"]), f"loss by epoch {res['history']}")
+    check(res["accuracy"] > 0.5, f"training-set accuracy {res['accuracy']} (chance 0.1)")
+    trainer = res["trainer"]
+    xb = torch.from_numpy(X[:hps["batch_size"]]).to(dev)
+    yb = torch.from_numpy(gt[:hps["batch_size"]]).to(dev)
+    row2d = step_timing(card, "NobodyConvNet2D classifier, AdamW step",
+                        lambda: trainer._train_step(xb, yb), hps["batch_size"])
+    row2d.update(steps=res["steps"], fit_ms_per_step=res["seconds"] * 1e3 / res["steps"],
+                 loss=res["history"], accuracy=res["accuracy"])
+    log(f"nobody_convnet2d_mnist: {res['steps']} steps in {res['seconds']:.3f} s "
+        f"({row2d['fit_ms_per_step']:.4f} ms a step, fit's wall time), loss "
+        f"{res['history']}, training-set accuracy {res['accuracy']:.4f}, solution.csv "
+        f"{len(sol)} rows")
+    print(json.dumps({"nobody_convnet": {"2d": row2d, "3d": row3d}}), flush=True)
+    return trainer.module
+
+
+def gan_example_check(dev, example, data, what):
+    """One step of the example's engine (k D updates, one G update), f32 on
+    the card against float64 on the CPU from the same weights and batches:
+    the losses and Adam's moments within CONVNET_REL of each tensor's
+    largest entry, the parameters with Adam's allowance."""
+    conf = copy.deepcopy(example.CONF)
+    k = int(conf["hps"]["disc_k_step"])
+    it = example.BatchIter(data, GAN_EX_CHECK_B, seed=37)
+    batches = [next(it) for _ in range(k + 1)]
+    ref = example.make_engine("cpu")
+    ref.gen.double()
+    ref.disc.double()
+    ref.init_state()
+    eng = example.make_engine(dev)
+    eng.init_state()
+    before = {side: {n: p.detach().double().clone() for n, p in m.named_parameters()}
+              for side, m in (("gen", ref.gen), ("disc", ref.disc))}
+    d64, g64 = ref.train_step([{n: torch.from_numpy(v).double() for n, v in b.items()}
+                               for b in batches], k)
+    d32, g32 = eng.train_step([{n: torch.from_numpy(v) for n, v in b.items()}
+                               for b in batches], k)
+    torch.cuda.synchronize()
+    worst = {"losses": max(rel_err(d32, d64), rel_err(g32.reshape(1), g64.reshape(1)))}
+    check(worst["losses"] <= CONVNET_REL, f"{what}: losses {worst['losses']:.3e}")
+    share = {}
+    hps = conf["hps"]["gen_disc_hps"]
+    check(conf["hps"]["disc_ext_hps"] == hps and k == 1, f"{what}: the conf's Adam or k")
+    for side in ("gen", "disc"):
+        m32, m64 = getattr(eng, side), getattr(ref, side)
+        opt32, opt64 = eng.state[side].optimizer, ref.state[side].optimizer
+        for key in ("exp_avg", "exp_avg_sq"):
+            err = max(rel_err(opt32.state[p][key], opt64.state[q][key])
+                      for p, q in zip(m32.parameters(), m64.parameters()))
+            check(err <= CONVNET_REL, f"{what}: {side} Adam {key} {err:.3e}")
+            worst[f"{side} {key}"] = err
+        share[side] = adam_params_close(m32, m64, before[side], opt64, hps["lr"],
+                                        hps["beta_2"], f"{what} {side}")
+    log(f"{what}: one step (k = {k}) at batch {GAN_EX_CHECK_B}, f32 on the card (TF32 off) "
+        f"against float64 on the CPU: " + ", ".join(f"{key} {v:.3e}" for key, v in worst.items())
+        + f" of their largest entry (limit {CONVNET_REL}); parameters at most "
+        + ", ".join(f"{s} {v:.3f}" for s, v in share.items()) + " of their tolerance")
+
+
+def gan_examples(dev, card):
+    """Phase 37."""
+    V, _ = common.mnist_like()
+    X = (V / 127.5 - 1.0).astype(np.float32)
+    rows = {}
+    for example, data, key in ((gan_mnist, X, "gan_mnist"),
+                               (pix2pix, X.reshape(-1, 28, 28, 1), "pix2pix")):
+        gan_example_check(dev, example, data, key)
+        hps = example.CONF["hps"]
+        steps = hps["epochs"] * hps["batch_step"]
+        log(f"{key} at its conf ({hps['epochs']} epochs x {hps['batch_step']} steps, batch "
+            f"{example.BATCH}, k {hps['disc_k_step']}) on {len(V)} MNIST-like rows:")
+        with tempfile.TemporaryDirectory() as tmp:
+            res = example.main(device=dev, V=V, results_dir=tmp)
+        hist = res["history"]
+        check(all(math.isfinite(v) for v in hist["disc_ext_loss"] + hist["gen_disc_loss"]),
+              f"{key}: losses {hist}")
+        ms = res["seconds"] * 1e3 / steps
+        row = {"steps": steps, "ms_per_step": ms,
+               "images_per_s": (hps["disc_k_step"] + 1) * example.BATCH / (ms / 1e3),
+               "history": hist, "card": card}
+        if key == "gan_mnist":
+            check(-1.0 <= res["sample_min"] <= res["sample_max"] <= 1.0
+                  and res["inter_sample_std"] > 0.0, f"gan_mnist samples {res}")
+            row.update(sample_range=[res["sample_min"], res["sample_max"]],
+                       inter_sample_std=res["inter_sample_std"])
+            extra = (f"sample range [{res['sample_min']:.3f}, {res['sample_max']:.3f}], "
+                     f"inter-sample std {res['inter_sample_std']:.4f}")
+        else:
+            check(math.isfinite(res["masked_l1"]), f"pix2pix L1 {res['masked_l1']}")
+            row.update(masked_l1=res["masked_l1"], blank_l1=res["blank_l1"])
+            extra = (f"masked-region L1 {res['masked_l1']:.4f} against the blank input's "
+                     f"{res['blank_l1']:.4f}")
+        log(f"{key}: {steps} steps in {res['seconds']:.3f} s, {ms:.4f} ms a step, "
+            f"{row['images_per_s']:.1f} images/s ((k + 1)·B a step, fit_generator's wall "
+            f"time); {extra}; {card}")
+        rows[key] = row
+    print(json.dumps({"gan_examples": rows}), flush=True)
+
+
+def io_path(dev, classifier, rbm_params):
+    """Phase 38."""
+    x = torch.from_numpy(common.mnist_like(256, seed=38)[0].reshape(-1, 28, 28, 1)).to(dev)
+    classifier.eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "classifier.pt2")
+        t0 = time.perf_counter()
+        export_fn(lambda v: classifier(v, deterministic=True), (x[:64],), path)
+        export_s = time.perf_counter() - t0
+        loaded = load_exported(path)
+        with torch.no_grad():
+            for rows in (x[:64], x[64:128]):
+                got, want = loaded.call(rows), classifier(rows, deterministic=True)
+                np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6,
+                                           atol=0)
+        log(f"export: the phase 36 classifier in inference mode on the card, export_fn in "
+            f"{export_s:.3f} s, {os.path.getsize(path)} bytes; load_exported(...).call on two "
+            f"batches of 64 equal to the module within rtol 1e-6")
+        block = MultiHeadAttention(4, 64, 0.0, use_flash=True, causal=True, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(38))
+        q = torch.randn(2, 16, 64, device=dev)
+        refused = None
+        try:
+            export_fn(lambda v: block([v, v, v]), (q,), os.path.join(tmp, "flash.pt2"))
+        except KernelTraceError as err:
+            refused = str(err)
+        check(refused is not None and "flash_fwd_cuda" in refused,
+              f"exporting a use_flash block was not refused by name: {refused}")
+        check(not os.path.exists(os.path.join(tmp, "flash.pt2")), "the refused export wrote")
+        log(f"export of a use_flash attention block refused: {refused[:110]}...")
+
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            log("Keras h5: h5py is not installed on this machine; the six Keras-h5 functions "
+                "were held against ku on the CPU only (tests/test_torch_io_extras.py)")
+            return
+        path = os.path.join(tmp, "rbm.h5")
+        save_reference_rbm_h5(rbm_params, path)
+        back = load_reference_rbm_h5(path)
+        check(np.array_equal(back["rbm_weight"], rbm_params["rbm_weight"].cpu().numpy())
+              and np.array_equal(back["hidden_bias"], rbm_params["hidden_bias"].cpu().numpy())
+              and not back["visible_bias"].any(), "the reference RBM file's round trip")
+    rbm = RBM({"lr": LR, "batch_size": BATCH, "epochs": 1}, H_DIM, input_dim=V_DIM,
+              device=dev)
+    rbm.params = {n: torch.from_numpy(v).to(dev) for n, v in back.items()}
+    V = torch.from_numpy(mnist_like(seed=38)).to(dev)
+    cd_gibbs.cd_train_cuda.launches = 0
+    rbm.fit(V, verbose=0)
+    torch.cuda.synchronize()
+    launches = cd_gibbs.cd_train_cuda.launches
+    check(launches == 1, f"the RBM from the h5 file launched kernel #1 {launches} times")
+    check(all(bool(torch.isfinite(t).all()) for t in rbm.params.values()),
+          "the RBM from the h5 file")
+    log(f"Keras h5: phase 4's fitted RBM written by save_reference_rbm_h5 and read back by "
+        f"load_reference_rbm_h5 (weights equal bit for bit, the visible bias zeros, as the "
+        f"reference reloads it); an RBM built from it fit one epoch: kernel #1 launches "
+        f"{launches}")
+
+
+def letterbox_reference(img, size):
+    """tests/test_native_loader.py's oracle, vectorized: the aspect-kept
+    half-pixel bilinear resize, centred in a size x size x 3 square of
+    zeros, in [-1, 1]."""
+    ih, iw, _ = img.shape
+    # The letterbox's size in float32, as loader.cpp computes it (in double
+    # precision int(ih · scale) can come out one pixel larger).
+    f32 = np.float32
+    scale = min(f32(size) / f32(ih), f32(size) / f32(iw))
+    rh, rw = min(int(f32(ih) * scale), size), min(int(f32(iw) * scale), size)
+
+    def axis(n_out, n_in):
+        s = np.maximum((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0.0)
+        i0 = s.astype(np.int64)
+        return i0, np.minimum(i0 + 1, n_in - 1), (s - i0)
+
+    y0, y1, fy = axis(rh, ih)
+    x0, x1, fx = axis(rw, iw)
+    f = img.astype(np.float64)
+    top = f[y0][:, x0] + (f[y0][:, x1] - f[y0][:, x0]) * fx[None, :, None]
+    bot = f[y1][:, x0] + (f[y1][:, x1] - f[y1][:, x0]) * fx[None, :, None]
+    out = np.zeros((size, size, 3), np.float64)
+    t, left = (size - rh) // 2, (size - rw) // 2
+    out[t:t + rh, left:left + rw] = (top + (bot - top) * fy[:, None, None]) * (2 / 255) - 1
+    return out, (t, left, rh, rw)
+
+
+def host_cpu() -> str:
+    """The host CPU's model as lscpu (or /proc/cpuinfo) names it."""
+    model = None
+    lscpu = shutil.which("lscpu")
+    if lscpu:
+        out = subprocess.run([lscpu], capture_output=True, text=True).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                      if line.startswith("Model name")), None)
+    if model is None and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith(("model name", "Model", "cpu model"))), None)
+    if model in (None, "unknown"):
+        model = f"model not reported ({model or 'no lscpu'}; {platform.machine()})"
+    return f"{model}, {os.cpu_count()} logical CPUs"
+
+
+def loader_path():
+    """Phase 39."""
+    t0 = time.perf_counter()
+    lib = native.load()
+    build_s = time.perf_counter() - t0
+    pipe = native.NativeImagePipeline(LOADER_SIZE, LOADER_SIZE, n_threads=4,
+                                      capacity=LOADER_N)
+    png = pipe.supports_files()
+    log(f"native loader: {lib._name} ({'with' if png else 'without'} libpng), built and "
+        f"loaded in {build_s:.3f} s")
+    rng = np.random.default_rng(39)
+    imgs = [rng.integers(0, 256, size=(int(rng.integers(24, 300)), int(rng.integers(24, 300)),
+                                       3), dtype=np.uint8) for _ in range(LOADER_N)]
+    for img in imgs:
+        pipe.submit(img)
+    out = pipe.get_batch(LOADER_N)
+    worst = 0.0
+    for i, img in enumerate(imgs):
+        want, (t, left, rh, rw) = letterbox_reference(img, LOADER_SIZE)
+        worst = max(worst, float(np.abs(out[i] - want).max()))
+        check(not out[i][:t].any() and not out[i][t + rh:].any() and not out[i][:, :left].any()
+              and not out[i][:, left + rw:].any(), f"image {i}'s letterbox rows")
+    check(worst <= 1e-4, f"the loader against the oracle: {worst:.3e} (4 threads, submit "
+          "order)")
+    pipe.close()
+    rates = {}
+    for threads in (1, 4):
+        p = native.NativeImagePipeline(LOADER_SIZE, LOADER_SIZE, n_threads=threads,
+                                       capacity=LOADER_N)
+        t0 = time.perf_counter()
+        for img in imgs:
+            p.submit(img)
+        p.get_batch(LOADER_N)
+        rates[f"native_{threads}_threads"] = LOADER_N / (time.perf_counter() - t0)
+        p.close()
+    t0 = time.perf_counter()
+    for img in imgs[:128]:
+        resize_image_to_target_symmeric_size(torch.from_numpy(img).float(), LOADER_SIZE)
+    rates["python_ku_torch_image_utils"] = 128 / (time.perf_counter() - t0)
+    cpu = host_cpu()
+    log(f"loader: {LOADER_N} uint8 images of 24..299 x 24..299 px into {LOADER_SIZE} x "
+        f"{LOADER_SIZE} x 3 letterboxes at 4 threads, in submit order, within {worst:.3e} of "
+        f"the oracle, letterbox rows zero; images/s on the host (not the card): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f"; host CPU {cpu}")
+    if png:
+        with tempfile.TemporaryDirectory() as tmp:
+            train_digits.prepare_data(tmp, LOADER_PNGS)
+            files = sorted(glob.glob(os.path.join(tmp, "*.png")))
+            check(len(files) == LOADER_PNGS, f"{len(files)} PNGs written")
+            p = native.NativeImagePipeline(64, 64, n_threads=4, capacity=LOADER_PNGS)
+            for f in files:
+                p.submit_file(f)
+            decoded = p.get_batch(len(files))
+            check(p.errors() == 0, f"{p.errors()} PNG decode errors")
+            for f in files:
+                p.submit(read_png(f))
+            from_python = p.get_batch(len(files))
+            p.close()
+        check(np.array_equal(decoded, from_python),
+              "libpng's decode in the loader against read_png's")
+        log(f"loader: {len(files)} digit PNGs as phase 30 writes them "
+            f"(train_digits.prepare_data), decoded by libpng in the loader's workers, equal "
+            f"bit for bit to read_png's pixels through the same resize")
+    else:
+        log("loader: built without libpng here; PNG files are decoded by read_png")
+    print(json.dumps({"native_loader": dict(rates, max_abs_err=worst, host_cpu=cpu,
+                                            libpng=png)}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4770,6 +5297,7 @@ def main() -> int:
 
     rbm_entry, V, fitted, kernel_one_ms = rbm_path(dev, name)
     kernels = [rbm_entry, dp_path(dev, name, V, fitted, kernel_one_ms)]
+    rbm_fitted = {n: t.detach().cpu() for n, t in fitted.items()}  # phase 38's h5 file
     del V, fitted
     kernels += serving_path(dev, name)
     torch.cuda.empty_cache()  # the serving models are gone with serving_path
@@ -4784,6 +5312,12 @@ def main() -> int:
     spec_autoencoder(dev, name)
     stylegan_example(dev, name)
     digits_and_tuner(dev, name)
+    torch.cuda.empty_cache()
+    classifier = convnet_path(dev, card)
+    gan_examples(dev, card)
+    io_path(dev, classifier, rbm_fitted)
+    del classifier
+    loader_path()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -6,13 +6,17 @@ generator and discriminator (``ku_torch.models``) in the port's GAN engine
 2), with its conf (``examples/style_based_gan/style_based_gan_conf.json``,
 read in place) and its surface:
 
-- ``TrainingSequenceFFHQ``: PNGs under ``raw_data_path`` resized to the
-  resolution (``ku_torch.image_utils``), labels the file index modulo
-  ``num_classes``; without images, synthetic smooth blobs. It draws from
+- ``TrainingSequenceFFHQ``: PNGs under ``raw_data_path`` at the
+  resolution, labels the file index modulo ``num_classes``; without
+  images, synthetic smooth blobs. It draws from
   ``np.random.default_rng(seed)`` what ``ku``'s draws, in the same order,
-  so the two packages see the same batches. PNGs are read by
-  ``ku_torch.image_utils.png`` (``ku`` reads them with matplotlib or its
-  C++ loader); a gray PNG is taken as three equal channels.
+  so the two packages see the same batches. As in ``ku``, PNGs go through
+  the threaded C++ loader (``ku_torch.native``: aspect-preserving
+  letterboxes), decoded in its workers when it was built with libpng, else
+  decoded by ``ku_torch.image_utils.png`` and resized by the loader; where
+  the loader does not build, they are read and resized by
+  ``ku_torch.image_utils`` (a gray PNG taken as three equal channels). The
+  sequence prints which path runs.
 - ``StyleGAN``: ``train`` (one epoch at a time, a sample grid and the npz
   weights after each), ``fit_progressively`` (one stage per entry of
   ``nn_arch.gen_prog_resolutions``, the shared parameters carried by name,
@@ -49,6 +53,7 @@ from ku_torch.backprop import STYLE_GAN_SOFTPLUS_INVERSE_R1_GP, AbstractGAN  # n
 from ku_torch.core.config import load_config  # noqa: E402
 from ku_torch.image_utils import read_png, resize, resize_batch, write_png  # noqa: E402
 from ku_torch.models import StyleGANDiscriminator, StyleGANGenerator  # noqa: E402
+from ku_torch import native  # noqa: E402
 
 CONF_PATH = os.path.join(common.KU_EXAMPLES, "style_based_gan", "style_based_gan_conf.json")
 
@@ -69,9 +74,21 @@ class TrainingSequenceFFHQ:
         self.files = sorted(glob.glob(os.path.join(raw_data_path, "**", "*.png"),
                                       recursive=True))
         self.synthetic = not self.files
+        self._native = None
+        self._native_errors_seen = 0
         if self.synthetic:
             print(f"[style_based_gan] no images under {raw_data_path!r}; "
                   "using a synthetic dataset")
+        elif native.available():
+            self._native = native.NativeImagePipeline(
+                out_h=self.resolution, out_w=self.resolution, n_threads=4,
+                capacity=4 * self.batch_size)
+            print("[style_based_gan] PNGs through the native loader ("
+                  + ("decoded in its workers" if self._native.supports_files()
+                     else "decoded in Python, no libpng") + ")")
+        else:
+            print("[style_based_gan] the native loader did not build; PNGs through "
+                  f"ku_torch.image_utils:\n{native.build_error()}")
 
     def _load_image(self, path):
         img = read_png(path).astype(np.float32) / 255.0
@@ -81,6 +98,28 @@ class TrainingSequenceFFHQ:
         if img.shape[0] != self.resolution or img.shape[1] != self.resolution:
             img = resize(img, (self.resolution, self.resolution)).numpy()
         return img * 2.0 - 1.0
+
+    def _native_batch(self, idx):
+        """The files ``idx`` through the native loader, in order."""
+        if self._native.supports_files():
+            for i in idx:
+                self._native.submit_file(self.files[i])
+            x = self._native.get_batch(len(idx))
+            # A failed decode delivers a zeroed frame (order must hold):
+            # say so rather than train on black images silently.
+            errs = self._native.errors()
+            if errs > self._native_errors_seen:
+                print(f"[style_based_gan] WARNING: {errs - self._native_errors_seen} PNG "
+                      f"decode failure(s) in this batch: zeroed frames entered training "
+                      f"(total {errs})")
+                self._native_errors_seen = errs
+            return x
+        for i in idx:
+            raw = read_png(self.files[i])
+            if raw.ndim == 2:
+                raw = np.repeat(raw[..., None], 3, axis=-1)
+            self._native.submit(np.ascontiguousarray(raw[..., :3]))
+        return self._native.get_batch(len(idx))
 
     def __iter__(self):
         return self
@@ -95,7 +134,10 @@ class TrainingSequenceFFHQ:
         else:
             idx = (self.rng.integers(0, len(self.files), size=b) if self.batch_shuffle
                    else np.arange(b) % len(self.files))
-            x = np.stack([self._load_image(self.files[i]) for i in idx])
+            if self._native is not None:
+                x = self._native_batch(idx)
+            else:
+                x = np.stack([self._load_image(self.files[i]) for i in idx])
             labels = (idx % self.num_classes).reshape(-1, 1)
         z1 = self.rng.normal(size=(b, self.latent_dim)).astype(np.float32)
         z2 = self.rng.normal(size=(b, self.latent_dim)).astype(np.float32)

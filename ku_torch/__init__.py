@@ -26,7 +26,12 @@ by reversing an encoder (:mod:`ku_torch.backprop`); callbacks and tracing
 (:mod:`ku_torch.image_utils`);
 the GAN losses and gradient penalties (:mod:`ku_torch.loss_ext`), ``MeanIoUExt``
 (:mod:`ku_torch.metrics_ext`) and ``he_normal``
-(:mod:`ku_torch.initializers_ext`); the JSON config contract,
+(:mod:`ku_torch.initializers_ext`); the NobodyConvNet backbones
+(:mod:`ku_torch.applications_ext`); the backend shim and the reference's
+re-export packages (:mod:`ku_torch.backend_ext`, :mod:`ku_torch.layer_ext`,
+:mod:`ku_torch.composite_layer`, :mod:`ku_torch.gnn_layer`); Keras h5 weight
+files and ``torch.export`` artifacts (:mod:`ku_torch.io`) and the threaded
+C++ image loader (:mod:`ku_torch.native`); the JSON config contract,
 seed streams and ``TrainState`` (:mod:`ku_torch.core`); and the JSON+npz weight files and
 state-dict conversion shared with ``ku`` (:mod:`ku_torch.utility`). Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -62,6 +67,8 @@ from ku_torch.nn import (
     PeriodicPositionEncoding,
     Transformer,
     InterferedTransformer,
+    DenseBatchNormalization,
+    GraphConvolutionNetwork,
     QuantDense,
     beam_search,
     fork_cache,
@@ -92,14 +99,19 @@ from ku_torch.backprop import (
     get_loss_conf,
 )
 
+from ku_torch import applications_ext as applications_ext
+from ku_torch import backend_ext as backend_ext
 from ku_torch import backprop as backprop
+from ku_torch import composite_layer as composite_layer
 from ku_torch import dist as dist
 from ku_torch import ebm as ebm
 from ku_torch import engine_ext as engine_ext
+from ku_torch import gnn_layer as gnn_layer
 from ku_torch import image_utils as image_utils
 from ku_torch import initializers_ext as initializers_ext
 from ku_torch import io as io
 from ku_torch import kernels as kernels
+from ku_torch import layer_ext as layer_ext
 from ku_torch import loss_ext as loss_ext
 from ku_torch import metrics_ext as metrics_ext
 from ku_torch import models as models

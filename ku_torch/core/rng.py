@@ -54,6 +54,37 @@ class SeedSeq:
         return g
 
 
+class KeySeq(SeedSeq):
+    """``ku``'s ``KeySeq`` surface over :class:`SeedSeq`: each call hands
+    out fresh ``torch.Generator`` objects where ``ku``'s hands out keys.
+
+    >>> ks = KeySeq(42)
+    >>> g0 = ks()          # a fresh generator
+    >>> g1, g2 = ks(2)     # two fresh generators
+    """
+
+    def __init__(self, seed: int, device="cpu"):
+        super().__init__(seed)
+        self.device = device
+
+    def __call__(self, num: int = 1):
+        gens = [self.generator(self.device) for _ in range(num)]
+        return gens[0] if num == 1 else gens
+
+    @property
+    def key(self) -> int:
+        """The root generator's current state as a seed (``ku``'s current
+        key)."""
+        return int(torch.randint(0, 2**63 - 1, (), generator=self._root.clone_state()))
+
+
+def fold_step(seed: int, step: int) -> int:
+    """A per-step seed derived from ``seed`` and the step counter (``ku``
+    folds the step into a key)."""
+    g = torch.Generator().manual_seed((int(seed) * 0x9E3779B97F4A7C15 + int(step)) % 2**63)
+    return int(torch.randint(0, 2**63 - 1, (), generator=g))
+
+
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """Map 32-bit random words to floats in [0, 1): the top 24 bits times
     2⁻²⁴, exact in float32 (``ku/core/rng.py`` ``uniform_from_bits``)."""

@@ -23,6 +23,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelTraceError(RuntimeError):
+    """A hand-written kernel's wrapper was reached by a tracer
+    (``torch.export``, ``torch.compile``): the kernels launch through
+    ``ctypes`` on ``data_ptr()``, which fake tensors do not have."""
+
+
+def refuse_tracing(name: str, *tensors) -> None:
+    """Raise :class:`KernelTraceError` naming the wrapper ``name`` if any of
+    ``tensors`` is a fake tensor or a compiler is tracing. The kernels are
+    not registered as ``torch.library`` custom ops with fake
+    implementations, so a traced program cannot hold them; the wrapper
+    never swaps in its plain version instead."""
+    import torch
+
+    plain = (torch.Tensor, torch.nn.Parameter)
+    if not torch.compiler.is_compiling() and all(type(t) in plain for t in tensors):
+        return  # eager tensors: the usual case, a few type checks a launch
+    from torch._subclasses.fake_tensor import is_fake
+
+    if torch.compiler.is_compiling() or any(
+            isinstance(t, torch.Tensor) and is_fake(t) for t in tensors):
+        raise KernelTraceError(
+            f"{name} launches a hand-written CUDA kernel through ctypes on data_ptr(), "
+            "which torch.export / torch.compile cannot trace: its fake tensors have no "
+            "storage. The kernels would need registering as torch.library custom ops "
+            "with fake implementations (ROADMAP.md §2)")
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

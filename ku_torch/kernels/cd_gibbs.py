@@ -209,6 +209,7 @@ def _launch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs, route,
     tensor before building or loading anything; raises if the launch is
     refused."""
     tensors = _check(params, v_all, mask, k, mode, batch_size, epochs)
+    _build.refuse_tracing("cd_train_cuda", *tensors)
     device = v_all.device
     for t in tensors:
         if t.device != device or device.type != "cuda":
@@ -429,6 +430,17 @@ def cd_train_torch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
         bh = bh + lr * d_bh
         bv = bv + lr * d_bv
     return {"rbm_weight": w, "hidden_bias": bh, "visible_bias": bv}, scores
+
+
+def cd_train_pallas_dp(mesh, params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
+                       axis_name: str = "data"):
+    """``ku``'s name for the data-parallel run (kernel #2):
+    :func:`ku_torch.kernels.cd_gibbs_dp.cd_train_dp`, with a seed where
+    ``ku`` takes a key."""
+    from ku_torch.kernels.cd_gibbs_dp import cd_train_dp
+
+    return cd_train_dp(mesh, params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
+                       axis_name=axis_name)
 
 
 def cd_train(params, v_all, mask, seed, lr, k, mode, batch_size, epochs):

@@ -148,6 +148,7 @@ def _check_step(params, v_local, m_local, k, mode):
 
 
 def _check_cuda(tensors, what):
+    _build.refuse_tracing(what, *tensors)
     device = tensors[0].device
     for t in tensors:
         if t.device != device or device.type != "cuda":

@@ -184,7 +184,8 @@ def _check(q, k, v, lengths, k_scale, v_scale, page_table=None):
 def _check_launch(name, q, v, tensors, int32s, k_scale, v_scale):
     """What the kernel takes beyond the contract: contiguous CUDA tensors on
     one device, f32 or bf16 queries, int32 lengths and table, f32 scales,
-    G <= 16, Dv <= 128."""
+    G <= 16, Dv <= 128; never a tracer's fake tensors."""
+    _build.refuse_tracing(name, *tensors)
     device = q.device
     for t in tensors:
         if t.device != device:

@@ -238,7 +238,8 @@ def _check(q, k, v, causal, window):
 
 def _check_cuda(name, *tensors):
     """The kernels' common terms: CUDA tensors on one device, all f32 or
-    all bf16."""
+    all bf16; never a tracer's fake tensors."""
+    _build.refuse_tracing(name, *tensors)
     device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device or device.type != "cuda":

@@ -94,7 +94,7 @@ from ku_torch.kernels.decode_attention import (
 )
 from ku_torch.kernels.flash_attention import flash_attention
 from ku_torch.kernels.sparse_attention import sparse_attention
-from ku_torch.nn.quant import quant_project, quant_weight
+from ku_torch.nn.quant import _127, quant_project, quant_weight
 
 SIMILARITY_TYPE_DIFF_ABS = "diff_abs"
 SIMILARITY_TYPE_PLAIN = "plain"
@@ -681,8 +681,10 @@ class MultiHeadAttention(nn.Module):
 def _quantize(x):
     """Symmetric per-(token, head) int8: the largest |element| of each
     vector maps to 127. Returns (int8 values, f32 scales), as ku's
-    ``_quant``, the scale computed in x's dtype."""
-    s = (x.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    ``_quant``, the scale computed in x's dtype, divided by a tensor so
+    that the card rounds the quotient as the CPU does (``_127``)."""
+    amax = x.abs().amax(dim=-1)
+    s = (amax / _127(amax)).clamp_min(1e-12)
     q = torch.round(x / s[..., None]).clamp(-127, 127).to(torch.int8)
     return q, s.float()
 

@@ -62,6 +62,14 @@ def equalized_coeff(gain: float, lrmul: float, fan_in) -> float:
     return gain / math.sqrt(fan_in) * lrmul
 
 
+def leaky_relu(x, negative_slope: float = 0.01):
+    """``jax.nn.leaky_relu`` (flax's ``nn.leaky_relu``): ``where(x >= 0, x,
+    slope·x)``, so its gradient at 0 is 1, where ``F.leaky_relu``'s is the
+    slope. A pre-activation of exactly 0 is common behind zero inputs and
+    zero biases (pix2pix's masked centre)."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
 def normalize_tuple(value, rank: int):
     if isinstance(value, int):
         return (value,) * rank

@@ -9,6 +9,7 @@ Parameters keep ``ku``'s names and layouts (``rbm_weight`` is (V, H)).
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -165,3 +166,8 @@ def save_weights(params, path: str) -> None:
 def load_weights(path: str) -> Dict[str, Any]:
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         return _unflatten({k: data[k] for k in data.files})
+
+
+def remove_if_exists(path: str) -> None:
+    if os.path.exists(path):
+        os.remove(path)

@@ -5,7 +5,9 @@ ones (forward, dq, dk/dv, a Trainer step under a block mask) and the
 data-parallel CD step kernels (with RBM.fit(mesh=) in an NCCL world of one
 process) below; then StyleGAN and the GAN step, and the layer-spec engine
 (a Stack in f32 against float64 on the CPU, a batch-statistics Trainer),
-checkpoints of a card state and the resize.
+checkpoints of a card state and the resize; the int8 KV cache's scales
+against the CPU's bit for bit, a NobodyConvNet2D step on cuDNN against
+float64, export and its refusal of a flash block, the native loader.
 
 These tests need an NVIDIA GPU with the CUDA toolkit (the kernel is built
 with nvcc at first use) and skip without one. They import nothing of JAX,
@@ -1668,3 +1670,139 @@ def test_quantize_weights_on_the_card_equals_the_cpu(device):
                            QuantDense(96, 40, device=device))
     for name, value in want.items():
         assert torch.equal(got[name].cpu(), value), name
+
+
+# -- The int8 KV scales, the NobodyConvNet step, export, the native loader
+
+
+def _identity_kv(module):
+    """K and V projections set to the identity, so that the cache holds the
+    inputs themselves on either device (TF32 off)."""
+    with torch.no_grad():
+        for name in ("W_K", "W_V"):
+            getattr(module, name).copy_(torch.eye(getattr(module, name).shape[0]))
+    return module
+
+
+def _flat_cache(cache, prefix=""):
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(_flat_cache(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def test_int8_kv_quantize_on_the_card_equals_the_cpu(device):
+    """The scales divide by 127 as a tensor on the card (quant._127): a
+    division by the Python number multiplies by its reciprocal there."""
+    from ku_torch.nn.attention import _quantize
+
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(4096, 128, generator=g) * torch.rand(4096, 1, generator=g).exp2() * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        q_cpu, s_cpu = _quantize(x.to(dtype))
+        q_card, s_card = _quantize(x.to(dtype).to(device))
+        assert torch.equal(s_card.cpu(), s_cpu), dtype
+        assert torch.equal(q_card.cpu(), q_cpu), dtype
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_kv_cache_on_the_card_equals_the_cpu(device, monkeypatch, paged):
+    """A prefill into an int8 cache, dense and paged, writes the same int8
+    K/V and scales on the card as on the CPU, bit for bit."""
+    from ku_torch.nn import MultiHeadAttention
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    kw = dict(kv_cache_dtype="int8", causal=True, max_decode_len=32,
+              **({"kv_page_size": 8} if paged else {}))
+    cpu = _identity_kv(MultiHeadAttention(4, 64, **kw, device="cpu",
+                                          generator=torch.Generator().manual_seed(1)))
+    card = MultiHeadAttention(4, 64, **kw, device=device)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 20, 64, generator=g) * torch.rand(3, 20, 1, generator=g).exp2() * 5
+    _, want = cpu([x, x, x], decode=True, cache={})
+    _, got = card([x.to(device)] * 3, decode=True, cache={})
+    want, got = _flat_cache(want), _flat_cache(got)
+    assert got.keys() == want.keys()
+    assert any("scale" in k for k in want)
+    for k, v in want.items():
+        assert torch.equal(got[k].cpu(), v), k
+
+
+def test_nobody_convnet2d_step_on_cudnn_matches_cpu_float64(no_tf32):
+    """The MNIST classifier at its conf: a training-mode forward (output and
+    batch statistics) within 1e-4 of float64 on the CPU, and one SGD step's
+    parameter changes within 1e-2 of the float64 change's largest entry
+    (cuDNN's f32 convolutions, as the GAN step's gradients)."""
+    import functools
+
+    from examples_torch import common
+    from examples_torch.mnist_digit_classfication import nobody_convnet2d_mnist as ex
+    from ku_torch.core.config import load_config
+    from ku_torch.engine_ext import Trainer
+
+    conf = load_config(ex.CONF_PATH)
+    V, gt = common.mnist_like(16, seed=3)
+    x = torch.from_numpy(V.reshape(-1, 28, 28, 1))
+    ref = ex.ConvNetClassifier(conf, (16, 28, 28, 1), device="cpu", dtype=torch.float64,
+                               generator=torch.Generator().manual_seed(5))
+    card = copy.deepcopy(ref).to("cuda", torch.float32)
+    before = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    sgd = functools.partial(torch.optim.SGD, lr=0.1)
+    for module, rows in ((ref, x.double()), (card, x.cuda())):
+        _, out = Trainer(module, ex.loss_fn, optimizer=sgd, has_batch_stats=True)._train_step(
+            rows, torch.from_numpy(gt).to(rows.device))
+        if module is ref:
+            want_out = out
+    assert _rel(out, want_out) <= 1e-4
+    for n, b in ref.named_buffers():
+        assert _rel(dict(card.named_buffers())[n], b) <= 1e-4, n
+    changes = {n: p.detach() - before[n] for n, p in ref.named_parameters()}
+    largest = max(float(c.abs().max()) for c in changes.values())
+    for n, p in card.named_parameters():
+        err = float((p.detach().double().cpu() - before[n] - changes[n]).abs().max())
+        assert err <= 1e-2 * float(changes[n].abs().max()) + 1e-6 * largest, n
+
+
+def test_export_round_trip_on_the_card(device, tmp_path):
+    from examples_torch.mnist_digit_classfication import nobody_convnet2d_mnist as ex
+    from ku_torch.core.config import load_config
+    from ku_torch.io import export_fn, load_exported
+
+    model = ex.ConvNetClassifier(load_config(ex.CONF_PATH), (8, 28, 28, 1), device=device,
+                                 generator=torch.Generator(device=device).manual_seed(0))
+    x = torch.rand(8, 28, 28, 1, device=device) * 255
+    path = str(tmp_path / "m.pt2")
+    export_fn(lambda v: model(v, deterministic=True), (x,), path)
+    with torch.no_grad():
+        got, want = load_exported(path).call(x), model(x, deterministic=True)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_export_refuses_a_flash_block_by_name(device, tmp_path):
+    from ku_torch.io import export_fn
+    from ku_torch.kernels._build import KernelTraceError
+    from ku_torch.nn import MultiHeadAttention
+
+    block = MultiHeadAttention(4, 64, use_flash=True, causal=True, device=device)
+    q = torch.randn(2, 16, 64, device=device)
+    with pytest.raises(KernelTraceError, match="flash_fwd_cuda"):
+        export_fn(lambda v: block([v, v, v]), (q,), str(tmp_path / "f.pt2"))
+    assert not (tmp_path / "f.pt2").exists()
+
+
+def test_native_loader_builds_into_the_port(device):
+    from pathlib import Path
+
+    from ku_torch import native
+
+    lib = Path(native.load()._name)
+    assert lib.parent == Path(native.__file__).resolve().parent.parent / "_build"
+    pipe = native.NativeImagePipeline(16, 16, n_threads=4)
+    pipe.submit(np.full((20, 10, 3), 200, np.uint8))
+    out = pipe.get()
+    pipe.close()
+    assert out.shape == (16, 16, 3) and np.isclose(out[8, 8, 0], 200 * 2 / 255 - 1)
