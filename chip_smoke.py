@@ -446,8 +446,52 @@ Phases (any failure raises and the script exits non-zero):
    decoded in the workers equal bit for bit to read_png's pixels; a
    `native_loader` JSON line.
 
-The last lines are the `kernels` JSON line (10 kernels), the card's name
-and power limit, and {"ok": true, "device": {...}}.
+40. (In an NCCL world of one process, started by make_mesh() and destroyed
+   after phase 42; over a group of one rank the port issues no collective
+   and no P2P op, so phases 40-42 hold the split code paths, not NCCL.)
+   Ring attention (ku_torch.kernels.flash_attention
+   .ring_attention, ku's ku/pallas/flash_attention.py:1147) at the serving
+   LM's attention shape at its training length: B 1, 16 query heads over 4
+   KV heads, D 128, N 8,192, bf16 (tensor cores) and f32 (CUDA cores);
+   causal, causal with window 2,048, and packed segments (six documents).
+   Forward and backward (dO drawn from a seed) at W 1 over the mesh and at
+   W 4 emulated in one process (4 hops of 2,048), each held against the
+   single-device flash_attention kernel path at the same N within phase
+   6's limits (output) and phase 14's (gradients), with exactly W launches
+   of the forward, dq and dk/dv kernels a call and rank (16 each for the 4
+   emulated ranks), each on its dtype's route; then W 4 emulated against
+   the plain versions on the card at N 2,048 in f32 (window 1,024, packed
+   segments). Forward + backward ms of the single-device call, W 1 and W 4
+   emulated, in turns (medians of 6); a `ring_attention` JSON line. A real
+   W 4 NCCL ring (--chips 4) waits for a machine with several GPUs.
+41. ContinuousBatcher(mesh=make_mesh({"model": 1}), num_head=16,
+   num_kv_head=4) on the bf16 0.87B serving LM (phase 8's conf: 8 slots,
+   prompt_len 64, chunk (8, 32), a 1,024-slot cache), its workload cut to
+   8 requests of 16..192 prompt tokens with budgets 32..64: every
+   attention layer split over the model axis, greedy ids equal to the
+   batcher without a mesh under the near-tie rule (at most 1 request may
+   stop at a near tie), the flash and decode kernels launched, no paged
+   one; decode tokens/s of both (the faster of 2 serves each, in turns,
+   after a first serve of each).
+42. One GAN.fit_generator step over make_mesh({"data": 1, "model": 1}) at
+   phase 27's conf (bf16, batch 12, k = 2, weights from seeds 27 / 28),
+   cuDNN deterministic: the model axis splits the map_dense, style_dense
+   and dense_1 kernels, the losses equal the step without a mesh and
+   every parameter and buffer within phase 27's 1e-4 of its largest entry;
+   ms a step of both, in turns (medians of 6).
+43. ku_torch.nn.packed on the card, f32 with TF32 off, at (4, 128, 128,
+   16): depth_to_space(space_to_depth(x)) == x; the packed conv (1x1,
+   3x3, 3x3 stride 2, 4x4 stride 2), depthwise conv, stride-2 transposed
+   conv, pixel norm, AdaIN and average pool against the unpacked functions
+   within 1e-4 of each result's largest entry.
+26b. (Run after phase 26.) The generator forward (f32, batch 4, phase 26's
+   conf) with leaky ReLU as where(x >= 0, x, 0.2·x), ku's (its gradient 1
+   at 0), against F.leaky_relu (0.2 there), in turns: ms (medians of 10)
+   and the device ops and time of one profiled forward each.
+
+The last lines are the `kernels` JSON line (10 kernels; the flash entries
+also carry `ring_launches_a_call` from phase 40), the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -4038,11 +4082,12 @@ def stylegan_timing(dev, name, gen_weights, disc_weights):
 
 
 def stylegan_path(dev, name):
-    """Phases 24-26."""
+    """Phases 24-26 (and 26b)."""
     gen, gen_weights, img = stylegan_generator(dev)
     del gen
     disc_weights = stylegan_discriminator(dev, img)
     stylegan_timing(dev, name, gen_weights, disc_weights)
+    leaky_change(dev, gen_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -5255,6 +5300,326 @@ def loader_path():
                                             libpng=png)}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-43: ring attention over kernels #3 / #4, the mesh paths of the
+# batcher and the GAN engine, the packed layouts. A real W = 4 NCCL ring
+# (--chips 4) waits for a machine with several GPUs: on one card the ring
+# runs at W = 1 in an NCCL world of one and at W = 4 emulated in one process.
+# ---------------------------------------------------------------------------
+
+# Phase 40: the serving LM's attention shape (16 query heads over 4 KV heads,
+# D 128) at its training length, B 1; 4 hops of 2,048 when emulated; the
+# plain versions held at RING_PLAIN_N (their N x N slabs).
+RING_N, RING_W, RING_PLAIN_N, RING_REPS = 8192, 4, 2048, 3
+RING_CASES = (("causal", {}), ("causal, window 2048", {"window": 2048}),
+              ("packed segments", {"segments": True}))
+# Phase 41: phase 8's batcher conf on the 0.87B LM, its workload cut to
+# MESH_REQUESTS requests of budgets in MESH_BUDGETS (phase 8 serves 24 of
+# 32..256): the host-bound decode steps take ~0.1 s each.
+MESH_REQUESTS, MESH_BUDGETS = 8, (32, 65)
+MESH_GAN_REPS = 3
+# Phase 43: the packed layouts at 128 px, 16 channels.
+PACK_B, PACK_RES, PACK_C = 4, 128, 16
+
+
+def ring_counts():
+    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_dq_cuda.launches,
+            fa.flash_bwd_dkv_cuda.launches)
+
+
+def fwd_bwd(fn, q, k, v, do):
+    """fn's output and (dq, dk, dv) for the output gradient do."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    o = fn(q, k, v)
+    return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+
+def ring_inputs(dev, dtype, n, seed):
+    """q, k, v, dO at the serving LM's heads, and packed segment ids (six
+    documents of random lengths)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    hd = LM_D // LM_HEADS
+    shapes = ((1, LM_HEADS, n, hd), (1, LM_KV_HEADS, n, hd), (1, LM_KV_HEADS, n, hd),
+              (1, LM_HEADS, n, hd))
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype) for s in shapes)
+    cuts = np.sort(np.random.default_rng(seed).choice(np.arange(1, n), 5, replace=False))
+    segs = torch.from_numpy(np.searchsorted(cuts, np.arange(n), side="right")[None]).to(
+        dev, torch.int32)
+    return q, k, v, do, segs
+
+
+def ring_close(got, want, dtype, what):
+    """Phase 6's limits on the output, phase 14's on the gradients."""
+    torch.testing.assert_close(got[0].float(), want[0].float(), **TOLS[dtype],
+                               msg=f"{what}: output")
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        bwd_close(a, b, dtype, f"{what}: {name}")
+    return max(_max_diff(a, b) for a, b in zip(got, want))
+
+
+def ring_path(dev, name, mesh):
+    """Phase 40; returns the launches of one W = 1 call of each kernel and of
+    one W = 4 emulated call, and the largest difference from the kernel path."""
+    hd = LM_D // LM_HEADS
+    scale = 1.0 / math.sqrt(hd)
+    rows, err = [], 0.0
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        route = fa.flash_route(dtype, hd)
+        for what, case in RING_CASES:
+            q, k, v, do, segs = ring_inputs(dev, dtype, RING_N, 40)
+            kw = dict(softmax_scale=scale, causal=True, window=case.get("window"),
+                      segment_ids=segs if case.get("segments") else None)
+            calls = {
+                "single": lambda a, b, c: fa.flash_attention(a, b, c, **kw),
+                "W 1": lambda a, b, c: fa.ring_attention(a, b, c, mesh, **kw),
+                f"W {RING_W} emulated": lambda a, b, c: fa.ring_attention_emulated(
+                    a, b, c, RING_W, **kw),
+            }
+            label = f"{what}, {str(dtype).split('.')[-1]}"
+            want = fwd_bwd(calls["single"], q, k, v, do)
+            for key, world, ranks in (("W 1", 1, 1), (f"W {RING_W} emulated", RING_W, RING_W)):
+                zero_counts()
+                got = fwd_bwd(calls[key], q, k, v, do)
+                torch.cuda.synchronize()
+                seen = ring_counts()
+                check(seen == (world * ranks,) * 3,
+                      f"ring {key}, {label}: launches fwd/dq/dkv {seen}, expected "
+                      f"{world} a rank of {ranks}")
+                check(fa.flash_fwd_cuda.route == route and fa.flash_bwd_dq_cuda.route == route
+                      and fa.flash_bwd_dkv_cuda.route == route,
+                      f"ring {key}, {label}: routes {fa.flash_fwd_cuda.route} / "
+                      f"{fa.flash_bwd_dq_cuda.route} / {fa.flash_bwd_dkv_cuda.route}, not {route}")
+                err = max(err, ring_close(got, want, dtype, f"ring {key}, {label}"))
+                launches[(key, dtype)] = seen
+                del got
+            times = {key: [] for key in calls}
+            for _ in range(RING_REPS):
+                for key in list(calls) + list(reversed(calls)):
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                    fwd_bwd(calls[key], q, k, v, do)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[key].append(start.elapsed_time(end))
+            ms = {key: float(np.median(t)) for key, t in times.items()}
+            row = {"what": f"{label}, B 1, H {LM_HEADS}/{LM_KV_HEADS}, N {RING_N}, D {hd}",
+                   "single_ms": ms["single"], "w1_ms": ms["W 1"],
+                   "w4_emulated_ms": ms[f"W {RING_W} emulated"],
+                   "w1_ratio": ms["W 1"] / ms["single"],
+                   "w4_emulated_ratio": ms[f"W {RING_W} emulated"] / ms["single"]}
+            rows.append(row)
+            log(f"ring attention, {row['what']}: forward + backward {ms['single']:.4f} ms "
+                f"single-device, W 1 {ms['W 1']:.4f} ms ({row['w1_ratio']:.3f}x), W {RING_W} "
+                f"emulated {row['w4_emulated_ms']:.4f} ms ({row['w4_emulated_ratio']:.3f}x; "
+                f"{RING_W} ranks in turn on one card) (medians of {2 * RING_REPS}); launches "
+                f"a call W 1 {launches[('W 1', dtype)]}, W {RING_W} emulated "
+                f"{launches[(f'W {RING_W} emulated', dtype)]}")
+            del q, k, v, do, want
+            torch.cuda.empty_cache()
+    # The plain versions on the card at a cut-down f32 case.
+    q, k, v, do, segs = ring_inputs(dev, torch.float32, RING_PLAIN_N, 41)
+    kw = dict(softmax_scale=scale, causal=True, window=RING_PLAIN_N // 2, segment_ids=segs)
+    o, lse = fa.flash_fwd_torch(q, k, v, **kw)
+    plain = (o,) + fa.flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    got = fwd_bwd(lambda a, b, c: fa.ring_attention_emulated(a, b, c, RING_W, **kw),
+                  q, k, v, do)
+    plain_err = ring_close(got, plain, torch.float32, "ring against the plain versions")
+    log(f"ring W {RING_W} emulated against the plain versions, f32, N {RING_PLAIN_N}, window "
+        f"{RING_PLAIN_N // 2}, packed segments: max abs diff {plain_err:.3e}; against the "
+        f"kernel path at N {RING_N}: {err:.3e}")
+    print(json.dumps({"ring_attention": rows}), flush=True)
+    return launches, max(err, plain_err)
+
+
+def batcher_mesh_phase(dev):
+    """Phase 41: the batcher over make_mesh({"model": 1}) against the
+    batcher without a mesh, on the bf16 serving LM."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    lm = LM(g, dtype=torch.bfloat16).eval()
+    rng = np.random.default_rng(41)
+    table = torch.from_numpy((rng.normal(size=(LM_VOCAB, LM_D)) * 0.05).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    embed = lambda ids, pos=None: table[ids]  # noqa: E731
+    readout = lambda y: y @ table.T  # noqa: E731
+    reqs = [rng.integers(0, LM_VOCAB, size=(int(n),))
+            for n in rng.integers(16, 193, size=MESH_REQUESTS)]
+    budgets = [int(b) for b in rng.integers(*MESH_BUDGETS, size=MESH_REQUESTS)]
+    kw = dict(embed=embed, readout=readout, num_slots=CB_SLOTS, prompt_len=CB_PROMPT_LEN,
+              max_decode_len=LM_MAX_LEN, chunk=CB_CHUNK)
+    plain = ContinuousBatcher(copy.deepcopy(lm), **kw)  # the mesh splits lm in place
+    want = plain.serve(reqs, budgets)
+    mesh = make_mesh({"model": 1})
+    cb = ContinuousBatcher(lm, mesh=mesh, num_head=LM_HEADS, num_kv_head=LM_KV_HEADS, **kw)
+    check(all(m.parallel is not None for m in lm.modules() if isinstance(m, MultiHeadAttention)),
+          "the mesh left an attention layer unsplit")
+    zero_counts()
+    got = cb.serve(reqs, budgets)  # the first serve also starts NCCL's communicator
+    flash, decode, paged = counts()
+    # Timed in turns after their first serves.
+    t_plain, t_mesh = [], []
+    for timed in (t_plain, t_mesh, t_mesh, t_plain):
+        timed.append(wall_s(lambda: (plain if timed is t_plain else cb).serve(reqs, budgets)))
+    t_plain, t_mesh = min(t_plain), min(t_mesh)
+    check(flash > 0 and decode > 0 and paged == 0,
+          f"the mesh batcher launched flash {flash}, decode {decode}, paged {paged}")
+    early = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(len(a) == len(b) == budgets[i], f"request {i}: {len(a)} / {len(b)} tokens")
+        diff = np.flatnonzero(a != b)
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        gap = top2_gap(last_logits(lm, table, torch.from_numpy(
+            np.concatenate([reqs[i], b[:t]])).to(dev)))
+        check(gap < NEAR_TIE, f"request {i} differs at token {t}, top-2 gap {gap:.3e} "
+              "(not a near tie)")
+        early += 1
+    check(early <= 1, f"{early} requests stop on near ties")
+    tokens = sum(budgets)
+    log(f"ContinuousBatcher(mesh=make_mesh({{'model': 1}})), bf16 0.87B LM, {MESH_REQUESTS} "
+        f"requests of {tokens} tokens: ids equal to the batcher without a mesh "
+        f"({early} stop on a near tie); its serve launched flash {flash}, decode {decode}; "
+        f"decode tokens/s {tokens / t_mesh:.1f} with the mesh, {tokens / t_plain:.1f} without "
+        f"(the faster of 2 serves each, in turns: {t_mesh:.3f} s / {t_plain:.3f} s)")
+    del lm, plain, cb
+    torch.cuda.empty_cache()
+    return tokens / t_mesh, tokens / t_plain
+
+
+def gan_mesh_phase(dev):
+    """Phase 42: one GAN.fit_generator step over make_mesh({"data": 1,
+    "model": 1}) against the step without a mesh, at phase 27's conf (bf16,
+    batch 12), cuDNN deterministic; then ms a step of both, in turns."""
+    cpu = torch.device("cpu")
+    gen_weights = stylegan_weights(StyleGANGenerator(**GAN_CONF, device=cpu), seed=27)
+    disc_weights = stylegan_weights(StyleGANDiscriminator(**GAN_DISC, device=cpu), seed=28)
+    groups = gan_batches(0, 1, GAN_B, labels=GAN_LABELS, conf=GAN_CONF)
+    hps = {"epochs": 1, "batch_step": 1}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        engines, hist = [], []
+        for mesh in (None, make_mesh({"data": 1, "model": 1})):
+            engine = gan_engine(gen_weights, disc_weights, dev, GAN_CONF, hps=hps,
+                                compute=torch.bfloat16, disc_conf=GAN_DISC)
+            hist.append(engine.fit_generator(iter(groups[0]), verbose=0, mesh=mesh))
+            engines.append(engine)
+        plain, meshed = engines
+        check(sum(getattr(m, "parallel", None) is not None
+                  for m in (*meshed.gen.modules(), *meshed.disc.modules())) > 0,
+              "the model axis split no kernel")
+        check(hist[0] == hist[1], f"losses {hist[1]} with the mesh, {hist[0]} without")
+        worst = 0.0
+        for side in ("gen", "disc"):
+            a = dict(getattr(plain, side).state_dict())
+            b = dict(getattr(meshed, side).state_dict())
+            check(a.keys() == b.keys(), f"{side}: the mesh changed the state's names")
+            for key in a:
+                diff = _max_diff(a[key], b[key])
+                worst = max(worst, diff)
+                check(diff <= GAN_REL * max(float(a[key].float().abs().max()), 1e-30),
+                      f"{side} {key}: {diff:.3e} from the step without a mesh")
+        on_card = [gan_on(b, dev) for b in groups[0]]
+        times = {0: [], 1: []}
+        for i in (0, 1, 1, 0) * MESH_GAN_REPS:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            engines[i].train_step(on_card, GAN_K)
+            end.record()
+            torch.cuda.synchronize()
+            times[i].append(start.elapsed_time(end))
+        ms = {i: float(np.median(t)) for i, t in times.items()}
+        log(f"GAN.fit_generator(mesh=make_mesh({{'data': 1, 'model': 1}})), bf16, batch {GAN_B}, "
+            f"cuDNN deterministic: losses {hist[1]} equal to the step without a mesh, every "
+            f"parameter and buffer within {worst:.3e}; ms a step {ms[1]:.4f} with the mesh, "
+            f"{ms[0]:.4f} without (medians of {2 * MESH_GAN_REPS}, in turns)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del engines, plain, meshed
+    torch.cuda.empty_cache()
+    return ms[1], ms[0]
+
+
+def packed_phase(dev):
+    """Phase 43: ku_torch.nn.packed on the card against the unpacked
+    functions, f32 (TF32 off), within 1e-4 of each result's largest entry."""
+    from ku_torch.nn import packed as pk
+    from ku_torch.nn.convolution import conv_nd, conv_transpose_nd
+    from ku_torch.nn.normalization import AdaptiveINWithStyle, pixel_norm
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.randn(PACK_B, PACK_RES, PACK_RES, PACK_C, generator=g, device=dev)
+    xp = pk.space_to_depth(x)
+    check(torch.equal(pk.depth_to_space(xp), x), "depth_to_space(space_to_depth(x)) != x")
+    worst = 0.0
+
+    def close(got, want, what):
+        nonlocal worst
+        diff = _max_diff(got, want)
+        worst = max(worst, diff / float(want.abs().max()))
+        check(diff <= 1e-4 * float(want.abs().max()), f"packed {what}: {diff:.3e}")
+
+    for k, stride in ((1, 1), (3, 1), (3, 2), (4, 2)):
+        w = torch.randn(k, k, PACK_C, PACK_C, generator=g, device=dev)
+        close(pk.depth_to_space(pk.packed_conv2d(xp, w, stride)),
+              conv_nd(x, w, stride, "SAME", 2), f"conv {k}x{k} stride {stride}")
+    kd = torch.randn(3, 3, PACK_C, 1, generator=g, device=dev)
+    close(pk.depth_to_space(pk.packed_depthwise_conv2d(xp, kd)),
+          conv_nd(x, kd.reshape(3, 3, 1, PACK_C), 1, "SAME", 2, groups=PACK_C), "depthwise")
+    kt = torch.randn(4, 4, PACK_C, PACK_C, generator=g, device=dev)
+    close(pk.depth_to_space(pk.packed_conv_transpose2x(xp, kt)),
+          conv_transpose_nd(x, kt, 2, "SAME", 2), "transposed conv 2x")
+    close(pk.depth_to_space(pk.packed_pixel_norm(xp)), pixel_norm(x), "pixel norm")
+    style = torch.randn(PACK_B, 2 * PACK_C, generator=g, device=dev)
+    close(pk.depth_to_space(pk.packed_adain_with_style(xp, style)),
+          AdaptiveINWithStyle(epsilon=1e-7)([x, style]), "AdaIN")
+    close(pk.packed_avg_pool2x(xp),
+          F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1), "average pool")
+    torch.cuda.synchronize()
+    log(f"packed layouts, f32, ({PACK_B}, {PACK_RES}, {PACK_RES}, {PACK_C}): conv 1x1, 3x3, "
+        f"3x3/2, 4x4/2, depthwise, transposed 2x, pixel norm, AdaIN and the pool equal the "
+        f"unpacked functions, largest difference {worst:.3e} of a result's largest entry")
+
+
+def leaky_change(dev, gen_weights):
+    """Phase 26b: the generator forward (f32, batch 4) with leaky ReLU as
+    where(x >= 0, x, 0.2·x) (ku's, gradient 1 at 0) against F.leaky_relu
+    (gradient 0.2 at 0), in turns: ms and device ops a forward."""
+    from ku_torch.models import stylegan as sg
+
+    module = load_stylegan(StyleGANGenerator, SG_CONF, gen_weights, dev)
+    inputs = gen_inputs(26, SG_BATCH, dev)
+    call = lambda: module(inputs, deterministic=True)  # noqa: E731
+    kinds = {"where": sg._leaky, "F.leaky_relu": lambda x: F.leaky_relu(x, 0.2)}
+    times = {k: [] for k in kinds}
+    ops = {}
+    try:
+        with torch.no_grad():
+            for kind in (*kinds, *reversed(kinds)) * 5:
+                sg._leaky = kinds[kind]
+                call()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                call()
+                end.record()
+                torch.cuda.synchronize()
+                times[kind].append(start.elapsed_time(end))
+            for kind, fn in kinds.items():
+                sg._leaky = fn
+                wall, rows, _ = profiled(call)
+                ops[kind] = (sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3, wall * 1e3)
+    finally:
+        sg._leaky = kinds["where"]
+    ms = {k: float(np.median(t)) for k, t in times.items()}
+    log("leaky ReLU in the generator forward (f32, batch 4): " + "; ".join(
+        f"{k}: {ms[k]:.4f} ms (median of 10), {ops[k][0]} device ops, device {ops[k][1]:.3f} "
+        f"ms, wall {ops[k][2]:.3f} ms" for k in kinds))
+    del module
+    return ms, ops
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5295,29 +5660,54 @@ def main() -> int:
         f"{BATCH} rows: {cd_gibbs_dp.grid_size(BATCH, V_DIM, H_DIM)}, at "
         f"{BATCH // DP_WORLD}: {cd_gibbs_dp.grid_size(BATCH // DP_WORLD, V_DIM, H_DIM)}")
 
+    started = time.perf_counter()
+
+    def elapsed(phases):
+        log(f"[phases {phases} done at {time.perf_counter() - started:.1f} s]")
+
     rbm_entry, V, fitted, kernel_one_ms = rbm_path(dev, name)
     kernels = [rbm_entry, dp_path(dev, name, V, fitted, kernel_one_ms)]
+    elapsed("2-5, 20-22")
     rbm_fitted = {n: t.detach().cpu() for n, t in fitted.items()}  # phase 38's h5 file
     del V, fitted
     kernels += serving_path(dev, name)
     torch.cuda.empty_cache()  # the serving models are gone with serving_path
+    elapsed("6-13, 31-35")
     kernels += training_path(dev, name, next(e for e in kernels if e["name"] == "flash_fwd"))
     torch.cuda.empty_cache()  # the dense-attention training model is gone
+    elapsed("14-16")
     kernels += sparse_training_path(dev, name)
     torch.cuda.empty_cache()  # the sparse-training model is gone
+    elapsed("17-19")
     rbm_examples(dev)
     stylegan_path(dev, name)
     stylegan_gan(dev, name)
     torch.cuda.empty_cache()
+    elapsed("23-27")
     spec_autoencoder(dev, name)
     stylegan_example(dev, name)
     digits_and_tuner(dev, name)
     torch.cuda.empty_cache()
+    elapsed("28-30")
     classifier = convnet_path(dev, card)
     gan_examples(dev, card)
     io_path(dev, classifier, rbm_fitted)
     del classifier
     loader_path()
+    torch.cuda.empty_cache()
+    elapsed("36-39")
+
+    # 40-42 in an NCCL world of one process (destroyed after them), then 43.
+    ring_launches, _ = ring_path(dev, name, make_mesh())
+    batcher_mesh_phase(dev)
+    gan_mesh_phase(dev)
+    dist.destroy_process_group()
+    packed_phase(dev)
+    elapsed("40-43")
+    for entry, i in (("flash_fwd", 0), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 2)):
+        e = next(x for x in kernels if x["name"] == entry)
+        e["ring_launches_a_call"] = {
+            f"{key}, {str(dt).split('.')[-1]}": n[i] for (key, dt), n in ring_launches.items()}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -40,8 +40,28 @@ function:
   never the values. The conf keys are accepted and the port computes the
   same function without them (ROADMAP.md §3).
 
-Not ported yet: ``mesh=`` (ROADMAP.md §1 item 6) raises
-``NotImplementedError``.
+``mesh=`` (a ``DeviceMesh``, :func:`ku_torch.dist.make_mesh`; every rank
+calls the engine alike, with the same batches) trains over the mesh as
+``ku``'s GSPMD step does, computing the single-device step's function:
+
+- a ``"data"`` axis splits each batch's rows (``ku``'s
+  ``shard_stacked_batches``): each rank takes its slice, the loss means are
+  weighted so that the all-reduced gradients are the whole batch's, the
+  batch statistics (truncation's batch mean, the minibatch-stddev groups,
+  which straddle the ranks) are the whole batch's
+  (:func:`ku_torch.dist.parallel.data_parallel`), and WGAN-GP's ε is drawn
+  for the whole batch and sliced; the generator's draws (its noise field
+  and style mixing) do not depend on the batch's rows, so the ranks draw
+  them alike from the same generator;
+- a ``"model"`` axis splits by column the kernels that ``ku``'s
+  ``shard_gan_state`` splits (2-D ``kernel`` leaves under ``map_dense``,
+  ``style_dense`` or ``dense_1`` whose columns divide): each rank holds and
+  updates its columns (Adam on a slice is the slice of Adam), computes them
+  and all-gathers the features (:func:`ku_torch.dist.parallel
+  .shard_columns_`, in place on the modules).
+
+Under a model axis past 1, the modules hold their ranks' columns: saving or
+exporting them saves slices.
 """
 
 from __future__ import annotations
@@ -52,8 +72,11 @@ from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ku_torch.core.state import TrainState
+from ku_torch.dist.mesh import axis_info, check_mesh, shard_batch
+from ku_torch.dist.parallel import data_parallel, shard_columns_
 from ku_torch.engine_ext.training import adam
 from ku_torch.loss_ext.loss import (
     input_grad,
@@ -218,6 +241,9 @@ class AbstractGAN:
         self.gen_rng_streams = tuple(self.nn_arch.get("gen_rng_streams", ()))
         self.state = None
         self._compiled = False
+        # The mesh of the last fit: its "data" axis's (group, size, rank),
+        # and the pair of modules its "model" axis split.
+        self._mesh = self._dp = self._split = None
         if conf.get("model_loading"):
             self.load_gan_model()
 
@@ -319,10 +345,14 @@ class AbstractGAN:
         return [self._gen_fake(b, generator) for b in batches]
 
     def _interp_eps(self, x_real, generator):
-        """WGAN-GP's interpolation weights, U[0, 1) per sample."""
-        shape = (x_real.shape[0],) + (1,) * (x_real.dim() - 1)
-        return torch.rand(shape, generator=generator, device=x_real.device,
-                          dtype=x_real.dtype)
+        """WGAN-GP's interpolation weights, U[0, 1) per sample (drawn for the
+        whole batch and sliced to this rank's rows under a data axis)."""
+        n, dp = x_real.shape[0], self._dp
+        rows = n if dp is None else n * dp[1]
+        shape = (rows,) + (1,) * (x_real.dim() - 1)
+        eps = torch.rand(shape, generator=generator, device=x_real.device,
+                         dtype=x_real.dtype)
+        return eps if dp is None else eps[dp[2] * n:(dp[2] + 1) * n]
 
     def _disc_loss(self, batch, generator, fake=None, lazy_r1: bool = True):
         """The mode's discriminator loss (one D step). ``fake``: the D
@@ -389,11 +419,27 @@ class AbstractGAN:
             total = total + l1_w * (fake - l1_target).abs().mean()
         return total
 
-    @staticmethod
-    def _update(state: TrainState, loss):
+    def _update(self, state: TrainState, loss):
+        """One optimizer step on ``loss``'s gradients; under a data axis,
+        this rank's part of the loss (local means over 1/W of the rows), so
+        the gradients are summed over the ranks and divided by W."""
         grads = torch.autograd.grad(loss, state.params, allow_unused=True,
                                     materialize_grads=True)
+        if self._dp is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self._dp[0])
+            flat = flat / self._dp[1]
+            grads = [part.view_as(g) for part, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
         state.apply_gradients(grads)
+
+    def _mean_loss(self, loss):
+        """The whole batch's loss from this rank's part (for the logs)."""
+        if self._dp is None:
+            return loss
+        loss = loss.clone()
+        dist.all_reduce(loss, group=self._dp[0])
+        return loss / self._dp[1]
 
     def train_step(self, batches: Sequence[Mapping], disc_k_step: int):
         """k = ``disc_k_step`` D updates, then one G update (``ku``'s
@@ -402,17 +448,46 @@ class AbstractGAN:
         made before the first D update (the generator does not change
         during them), one generator call each. Returns the (k,) D losses and
         the G loss, on the device."""
-        batches = [_to_device(b, self.device) for b in batches[:disc_k_step + 1]]
+        batches = [self._rows(_to_device(b, self.device)) for b in batches[:disc_k_step + 1]]
         draws = self.state["gen"].generator
-        fakes = self._gen_fakes(batches[:disc_k_step], draws)
-        d_losses = []
-        for batch, fake in zip(batches[:disc_k_step], fakes):
-            loss = self._disc_loss(batch, draws, fake)
-            self._update(self.state["disc"], loss)
-            d_losses.append(loss.detach())
-        g_loss = self._gen_loss(batches[disc_k_step], draws)
-        self._update(self.state["gen"], g_loss)
-        return torch.stack(d_losses), g_loss.detach()
+        with data_parallel(None if self._dp is None else self._dp[0]):
+            fakes = self._gen_fakes(batches[:disc_k_step], draws)
+            d_losses = []
+            for batch, fake in zip(batches[:disc_k_step], fakes):
+                loss = self._disc_loss(batch, draws, fake)
+                self._update(self.state["disc"], loss)
+                d_losses.append(self._mean_loss(loss.detach()))
+            g_loss = self._gen_loss(batches[disc_k_step], draws)
+            self._update(self.state["gen"], g_loss)
+        return torch.stack(d_losses), self._mean_loss(g_loss.detach())
+
+    def _rows(self, batch):
+        """This rank's rows of a batch under a data axis (``ku``'s
+        ``shard_stacked_batches``: the batch axis of each stacked leaf)."""
+        if self._dp is None:
+            return batch
+        return shard_batch(self._mesh, batch, axis=0, axis_name="data")
+
+    def _place(self, mesh):
+        """Train over ``mesh`` from here on: its ``"data"`` axis splits the
+        batches; its ``"model"`` axis splits the modules' kernels by column
+        (once per pair of modules), a state built before keeping its Adam
+        moments, sliced like their parameters."""
+        names = check_mesh(mesh).mesh_dim_names
+        self._mesh = mesh
+        self._dp = axis_info(mesh, "data") if "data" in names else None
+        if self._dp is not None and self._dp[1] == 1:
+            self._dp = None  # one rank: nothing to split or to sum
+        modules = (id(self.gen), id(self.disc))
+        if "model" not in names or self._split == modules:
+            return
+        split = shard_columns_(self.gen, mesh) + shard_columns_(self.disc, mesh)
+        self._split = modules
+        for st in (self.state or {}).values():
+            for p, cut in split:
+                for key, value in st.optimizer.state.get(p, {}).items():
+                    if value.dim():
+                        st.optimizer.state[p][key] = cut(value)
 
     def train_multi_step(self, groups: Sequence[Sequence[Mapping]], disc_k_step: int):
         """``len(groups)`` steps in one call (``ku``'s ``steps_per_call``);
@@ -435,16 +510,15 @@ class AbstractGAN:
         callback's ``maybe_restore(engine)`` returns; ``engine.stop_training``
         ends the run after the epoch. Returns ``{"disc_ext_loss": [...],
         "gen_disc_loss": [...]}``, one mean an epoch."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "GAN.fit_generator(mesh=...) is not ported to ku_torch yet; it "
-                "comes with the multi-device slice of the port (ROADMAP.md §1 item 6)")
         epochs = int(self.hps.get("epochs", 1))
         batch_step = int(self.hps.get("batch_step", 1))
         disc_k_step = int(self.hps.get("disc_k_step", 1))
         steps_per_call = max(1, int(self.hps.get("steps_per_call", 1)))
         if not self._compiled:
             self.compile()
+        self._dp = None  # a data axis splits only the fits given its mesh
+        if mesh is not None:
+            self._place(mesh)
         if self.state is None:
             self.init_state(seed=seed)
         else:
@@ -509,11 +583,13 @@ class AbstractGAN:
                             "disc": dict(self.disc.named_buffers())}}
 
     def _param_trees(self):
-        return {"gen_params": variables_from_module(self.gen)["params"],
-                "disc_params": variables_from_module(self.disc)["params"]}
+        """Both modules' parameters as ``ku``'s trees, the kernels that a
+        model axis split all-gathered whole."""
+        return {"gen_params": _whole_params(self.gen),
+                "disc_params": _whole_params(self.disc)}
 
     def _prog_stage_setup(self, e: int, generator_factory, gen_prog_depths,
-                          disc_prog_depths, seed: int, prev_params=None):
+                          disc_prog_depths, seed: int, prev_params=None, mesh=None):
         """Build stage ``e``'s modules and iterator, a fresh state at the new
         depth, and seed the parameters whose names and shapes the previous
         stage shares from ``prev_params`` (before training, so that the
@@ -521,12 +597,17 @@ class AbstractGAN:
         g_d = gen_prog_depths[e] if e < len(gen_prog_depths) else None
         d_d = disc_prog_depths[e] if e < len(disc_prog_depths) else None
         self.gen, self.disc, it = generator_factory(e, g_d, d_d)
-        self.init_state(seed=seed + e)
         if prev_params is not None:
             _load_tree(self.gen, _merge_shared(
                 variables_from_module(self.gen)["params"], prev_params["gen_params"]))
             _load_tree(self.disc, _merge_shared(
                 variables_from_module(self.disc)["params"], prev_params["disc_params"]))
+        self.state = None
+        if mesh is not None:
+            if not self._compiled:
+                self.compile()
+            self._place(mesh)  # the new modules split before their state
+        self.init_state(seed=seed + e)
         return iter(it)
 
     def fit_generator_progressively(self, generator_factory,
@@ -544,10 +625,7 @@ class AbstractGAN:
         checkpointed stage (a callback's ``mgr.latest_step()``), restores
         it and goes on at the next. Returns one history a stage."""
         if mesh is not None:
-            raise NotImplementedError(
-                "GAN.fit_generator_progressively(mesh=...) is not ported to ku_torch "
-                "yet; it comes with the multi-device slice of the port (ROADMAP.md "
-                "§1 item 6)")
+            check_mesh(mesh)
         epochs = int(self.hps.get("epochs", 1))
         history = []
         prev_params = self._param_trees() if self.state is not None else None
@@ -559,7 +637,7 @@ class AbstractGAN:
                       if ckpt is not None and hasattr(ckpt, "mgr") else None)
             if latest is not None and latest < epochs:
                 self._prog_stage_setup(int(latest), generator_factory, gen_prog_depths,
-                                       disc_prog_depths, seed, prev_params)
+                                       disc_prog_depths, seed, prev_params, mesh)
                 restored = ckpt.maybe_restore(self)
                 if restored is not None:
                     prev_params = self._param_trees()
@@ -568,12 +646,12 @@ class AbstractGAN:
 
         for e in range(initial_epoch, epochs):
             it = self._prog_stage_setup(e, generator_factory, gen_prog_depths,
-                                        disc_prog_depths, seed, prev_params)
+                                        disc_prog_depths, seed, prev_params, mesh)
             sub_hps = dict(self.hps)
             sub_hps["epochs"] = e + 1
             old_hps, self.hps = self.hps, sub_hps
             try:
-                h = self.fit_generator(it, verbose=verbose, seed=seed + e,
+                h = self.fit_generator(it, verbose=verbose, seed=seed + e, mesh=mesh,
                                        callbacks=callbacks, initial_epoch=e)
             finally:
                 self.hps = old_hps
@@ -648,6 +726,22 @@ class AbstractGAN:
             _load_tree(self.gen, g["params"])
             _load_tree(self.disc, d["params"])
         return self
+
+
+def _whole_params(module):
+    """``variables_from_module(module)["params"]``, each kernel that a model
+    axis split by column (its layer's ``parallel`` mode ``"gather"``)
+    all-gathered whole."""
+    whole = {}
+    for name, p in module.named_parameters():
+        path, _, attr = name.rpartition(".")
+        par = getattr(module.get_submodule(path) if path else module, "parallel", None)
+        if attr == "kernel" and par is not None and par.mode == "gather":
+            parts = [torch.empty_like(p) for _ in range(par.world)]
+            dist.all_gather(parts, p.detach().contiguous(), group=par.group)
+            p = torch.cat(parts, dim=1)
+        whole[name] = p
+    return tree_from_state_dict(whole)
 
 
 def _merge_shared(new_tree, old_tree):

@@ -1,8 +1,9 @@
-"""Device meshes and the data-parallel CD epoch, over ``torch.distributed``.
+"""Device meshes, sharding and the data-parallel CD epoch, over
+``torch.distributed``.
 
-Port of the part of ``ku/dist/mesh.py`` that data-parallel RBM training
-needs. ``ku`` runs one program over a ``jax.sharding.Mesh`` of every device
-and lets ``shard_map`` and ``psum`` split the work; the port is SPMD in
+Port of ``ku/dist/mesh.py``. ``ku`` runs one program over a
+``jax.sharding.Mesh`` of every device and lets ``shard_map``, ``psum`` and
+GSPMD split the work; the port is SPMD in
 PyTorch's idiom instead: one process per GPU, each holding its own device,
 a ``torch.distributed.device_mesh.DeviceMesh`` over the processes, and
 collectives over its process group (NCCL on the card, gloo on the CPU).
@@ -13,17 +14,33 @@ collectives over its process group (NCCL on the card, gloo on the CPU).
   a world of one process on this device, so a one-card caller needs nothing
   else.
 - :func:`shard_batch` is this rank's slice of each tensor.
+- Sharding: ``ku``'s ``NamedSharding(mesh, P(...))`` is a
+  :class:`NamedSharding` here, a mesh and a ``PartitionSpec``-like tuple
+  (one entry per tensor dimension: a mesh dimension's name or None), whose
+  :attr:`NamedSharding.placements` are ``torch.distributed.tensor``'s
+  ``Shard(d)`` / ``Replicate()``, one per mesh dimension. :func:`place`
+  puts a tensor on the mesh by it (``distribute_tensor``, a ``DTensor``;
+  ``.to_local()`` is this rank's slice) and :func:`local_slice` cuts this
+  rank's slice without communication. :func:`data_parallel_sharding`,
+  :func:`replicate`, :func:`shard_gan_state`, :func:`shard_decode_state` and
+  :func:`shard_stacked_batches` are ``ku``'s helpers. Their decisions are
+  the plain functions :func:`gan_leaf_spec`, :func:`decode_param_spec`,
+  :func:`decode_cache_spec` and :func:`decode_heads_divide`, of the mesh's
+  axis sizes, a leaf's '/'-joined path and its shape: so they can be held
+  against ``ku``'s on meshes that one process cannot build.
 - :func:`cd_epoch_dp` is ``ku``'s scan-plus-psum epoch: each step the
   rank's rows through :func:`ku_torch.ebm.rbm.cd_stats`, an all-reduce of
   the statistics, :func:`ku_torch.ebm.rbm.apply_stats`.
 
-The fused data-parallel run, whose steps are hand-written kernels, is
+The layers' own collectives (head-parallel serving, the GAN engine's
+splits) are :mod:`ku_torch.dist.parallel`. The fused data-parallel run, whose steps are hand-written kernels, is
 :func:`ku_torch.kernels.cd_gibbs_dp.cd_train_dp`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,12 +110,18 @@ def make_mesh(axis_shapes: Optional[dict] = None, devices=None) -> DeviceMesh:
                       mesh_dim_names=names)
 
 
-def axis_info(mesh: DeviceMesh, axis_name: str = "data"):
-    """(process group, its size, this process's rank in it) of one mesh
-    dimension. Raises ``TypeError`` for anything but a ``DeviceMesh``."""
+def check_mesh(mesh) -> DeviceMesh:
+    """``mesh`` itself; ``TypeError`` for anything but a ``DeviceMesh``."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh (ku_torch.dist.make_mesh), "
                         f"got {type(mesh).__name__}")
+    return mesh
+
+
+def axis_info(mesh: DeviceMesh, axis_name: str = "data"):
+    """(process group, its size, this process's rank in it) of one mesh
+    dimension. Raises ``TypeError`` for anything but a ``DeviceMesh``."""
+    check_mesh(mesh)
     group = mesh.get_group(axis_name)
     return group, dist.get_world_size(group), dist.get_rank(group)
 
@@ -128,6 +151,234 @@ def shard_batch(mesh: DeviceMesh, tree, axis: int = 0, axis_name: str = "data"):
         return x.narrow(axis, rank * part, part)
 
     return _tree_map(take, tree)
+
+
+# -- sharding ---------------------------------------------------------------
+
+
+def axis_sizes(mesh: DeviceMesh) -> dict:
+    """{dimension name: size} of a mesh (``ku``'s ``mesh.shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+class NamedSharding:
+    """``ku``'s ``NamedSharding(mesh, P(*spec))``: ``spec`` names, for each
+    leading dimension of a tensor, the mesh dimension it is split over (or
+    None); ``()`` replicates. :attr:`placements` is the same placement in
+    ``torch.distributed.tensor``'s terms, one per mesh dimension."""
+
+    def __init__(self, mesh: DeviceMesh, spec: Sequence = ()):
+        self.mesh, self.spec = mesh, tuple(spec)
+        named = [a for a in self.spec if a is not None]
+        unknown = set(named) - set(mesh.mesh_dim_names)
+        if unknown or len(named) != len(set(named)):
+            raise ValueError(f"spec {self.spec} does not fit the mesh's dimensions "
+                             f"{mesh.mesh_dim_names}")
+
+    @property
+    def placements(self) -> list:
+        from torch.distributed.tensor import Replicate, Shard
+
+        return [Shard(self.spec.index(name)) if name in self.spec else Replicate()
+                for name in self.mesh.mesh_dim_names]
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.mesh_dim_names}, {self.spec})"
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(x, sharding: NamedSharding):
+    """``x`` (a tensor or an array) on the mesh by ``sharding``: a ``DTensor``
+    from ``torch.distributed.tensor.distribute_tensor`` (every rank passes
+    the same whole ``x``), whose ``.to_local()`` is this rank's slice."""
+    from torch.distributed.tensor import distribute_tensor
+
+    x = torch.as_tensor(x).to(_mesh_device(sharding.mesh))
+    return distribute_tensor(x, sharding.mesh, sharding.placements)
+
+
+def local_slice(x, sharding: NamedSharding):
+    """This rank's slice of the whole ``x`` under ``sharding``, cut without
+    communication (a view). Raises ``ValueError`` if a split dimension does
+    not divide."""
+    sizes = axis_sizes(sharding.mesh)
+    coord = dict(zip(sharding.mesh.mesh_dim_names, sharding.mesh.get_coordinate()))
+    for dim, name in enumerate(sharding.spec):
+        if name is None:
+            continue
+        n, w = x.shape[dim], sizes[name]
+        if n % w:
+            raise ValueError(f"dimension {dim} of size {n} does not divide over "
+                             f"the {w} ranks of {name!r}")
+        x = x.narrow(dim, coord[name] * (n // w), n // w)
+    return x
+
+
+def _tree_map_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over dicts, lists and tuples; paths '/'-joined."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_path(fn, v, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _is_array(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def data_parallel_sharding(mesh: DeviceMesh, ndim: int, axis: int = 0,
+                           axis_name: str = "data") -> NamedSharding:
+    """Dimension ``axis`` of an ``ndim``-dimensional tensor split over
+    ``axis_name``."""
+    spec = [None] * ndim
+    spec[axis] = axis_name
+    return NamedSharding(mesh, spec)
+
+
+def replicate(mesh: DeviceMesh) -> NamedSharding:
+    """The whole tensor on every rank."""
+    return NamedSharding(mesh, ())
+
+
+GAN_TP_PATTERNS = ("map_dense", "style_dense", "dense_1")
+
+
+def gan_leaf_spec(path: str, shape, sizes: Mapping, model_axis: str = "model",
+                  tp_patterns: Sequence[str] = GAN_TP_PATTERNS) -> tuple:
+    """``ku``'s placement of one GAN state leaf: a 2-D ``kernel`` whose path
+    holds one of ``tp_patterns`` and whose columns divide ``model_axis`` is
+    split by column, ``(None, model_axis)``; anything else is replicated."""
+    if (len(shape) == 2 and "kernel" in path
+            and any(pat in path for pat in tp_patterns)
+            and model_axis in sizes and shape[1] % sizes[model_axis] == 0):
+        return (None, model_axis)
+    return ()
+
+
+def shard_gan_state(state, mesh: DeviceMesh, model_axis: str = "model",
+                    tp_patterns: Sequence[str] = GAN_TP_PATTERNS):
+    """A GAN state (nested dicts, lists and tuples of tensors or arrays, such
+    as :func:`ku_torch.backprop.state_to_ku`'s) placed on the mesh by
+    :func:`gan_leaf_spec`: ``DTensor`` leaves; other leaves as they are."""
+    sizes = axis_sizes(mesh)
+
+    def put(path, leaf):
+        if not _is_array(leaf):
+            return leaf
+        spec = gan_leaf_spec(path, tuple(leaf.shape), sizes, model_axis, tp_patterns)
+        return place(leaf, NamedSharding(mesh, spec))
+
+    return _tree_map_path(put, state)
+
+
+def decode_heads_divide(tp: int, num_head: Optional[int] = None,
+                        num_kv_head: Optional[int] = None) -> bool:
+    """Whether head-parallel serving can split the heads over ``tp`` ranks:
+    True without a ``num_head`` to check (``ku`` then trusts the shapes)."""
+    if num_head is None:
+        return True
+    hkv = num_kv_head if num_kv_head is not None else num_head
+    return not (num_head % tp or hkv % tp)
+
+
+def decode_param_spec(path: str, shape, tp: int, model_axis: str = "model") -> tuple:
+    """``ku``'s head-parallel placement of one transformer parameter (when
+    the heads divide): ``W_Q`` / ``W_K`` / ``W_V`` and ``Dense_0/kernel`` by
+    column, ``W_multi_head`` and ``Dense_1/kernel`` by row, ``Dense_0/bias``
+    split; each only where its dimension divides ``tp``, else replicated."""
+    if len(shape) == 2:
+        if path.endswith(("W_Q", "W_K", "W_V")) or "Dense_0/kernel" in path:
+            if shape[1] % tp == 0:
+                return (None, model_axis)
+        elif path.endswith("W_multi_head") or "Dense_1/kernel" in path:
+            if shape[0] % tp == 0:
+                return (model_axis, None)
+    if len(shape) == 1 and "Dense_0/bias" in path and shape[0] % tp == 0:
+        return (model_axis,)
+    return ()
+
+
+_POOL_LEAVES = ("pages_k", "pages_v", "key_scale_pages", "value_scale_pages")
+
+
+def decode_cache_spec(name: str, shape, tp: int, model_axis: str = "model",
+                      data_axis: Optional[str] = None, heads: bool = True) -> tuple:
+    """``ku``'s placement of one KV-cache leaf (``name`` its last path entry):
+    the head axis (1) of the dense, paged and int8 entries over
+    ``model_axis`` where it divides; the batch axis (0) of every per-row leaf
+    over ``data_axis``, never a page pool's (its axis 0 is pages). With
+    ``heads=False`` (the heads do not divide) only the batch axis splits."""
+    nd = len(shape)
+    if not heads:
+        if name in _POOL_LEAVES:
+            return ()
+        return (data_axis,) if data_axis is not None and nd >= 1 else ()
+    if name in ("cached_key", "cached_value") and nd == 4 and shape[1] % tp == 0:
+        return (data_axis, model_axis, None, None)
+    if name in ("key_scale", "value_scale") and nd == 3 and shape[1] % tp == 0:
+        return (data_axis, model_axis, None)
+    if name in ("pages_k", "pages_v") and nd == 4:
+        return (None, model_axis, None, None) if shape[1] % tp == 0 else ()
+    if name in ("key_scale_pages", "value_scale_pages") and nd == 3:
+        return (None, model_axis, None) if shape[1] % tp == 0 else ()
+    if data_axis is not None and nd >= 1:
+        return (data_axis,)  # cache_index (B,), page_table / cache_pos (B, m)
+    return ()
+
+
+def decode_fallback_warning(num_head, num_kv_head, tp) -> None:
+    hkv = num_kv_head if num_kv_head is not None else num_head
+    warnings.warn(
+        f"shard_decode_state: num_head={num_head}/num_kv_head={hkv} do not "
+        f"divide tp={tp} — placing weights and cache heads replicated "
+        "(head-parallel serving needs head counts divisible by the model "
+        "axis)", stacklevel=3)
+
+
+def shard_decode_state(params, cache, mesh: DeviceMesh, model_axis: str = "model",
+                       num_head: Optional[int] = None,
+                       num_kv_head: Optional[int] = None,
+                       data_axis: Optional[str] = None):
+    """Head-parallel serving's placement of a transformer stack's parameters
+    (a state dict, '.'- or '/'-joined names, or nested dicts) and KV cache
+    (the cache protocol's '/'-keyed dict), as ``ku``'s: each leaf placed by
+    :func:`decode_param_spec` / :func:`decode_cache_spec`. When ``num_head``
+    (and ``num_kv_head``) do not divide the model axis it warns and
+    replicates the parameters and the cache's heads, keeping the batch split
+    over ``data_axis``. Returns (params, cache) with ``DTensor`` leaves."""
+    tp = axis_sizes(mesh)[model_axis]
+    heads = decode_heads_divide(tp, num_head, num_kv_head)
+    if not heads:
+        decode_fallback_warning(num_head, num_kv_head, tp)
+
+    def put_param(path, leaf):
+        path = path.replace(".", "/")
+        spec = decode_param_spec(path, tuple(leaf.shape), tp, model_axis) if heads else ()
+        return place(leaf, NamedSharding(mesh, spec))
+
+    def put_cache(path, leaf):
+        name = path.rsplit("/", 1)[-1]
+        spec = decode_cache_spec(name, tuple(leaf.shape), tp, model_axis, data_axis, heads)
+        return place(leaf, NamedSharding(mesh, spec))
+
+    return _tree_map_path(put_param, params), _tree_map_path(put_cache, cache)
+
+
+def shard_stacked_batches(batches, mesh: DeviceMesh, axis_name: str = "data",
+                          batch_axis: int = 1):
+    """The GAN engine's stacked batches on the mesh, the batch dimension
+    split over ``axis_name``: ``batch_axis`` 1 for (k, batch, ...) stacks, 2
+    for the multi-step (S, k, batch, ...) stacks. ``DTensor`` leaves."""
+    spec = [None] * batch_axis + [axis_name]
+    return _tree_map_path(lambda _, x: place(x, NamedSharding(mesh, spec)), batches)
 
 
 def _rank_generator(generator: torch.Generator, rank: int,

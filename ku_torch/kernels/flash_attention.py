@@ -41,6 +41,12 @@ Functions:
   over the saved q, k, v, o and lse (``ku``'s ``jax.custom_vjp``); under
   ``torch.no_grad()`` it is :func:`flash_fwd`'s output alone.
 - :func:`flash_layout` says how a tensor-core launch reads its tensors.
+- :func:`ring_attention` is ``ku``'s sequence-parallel attention over a
+  mesh dimension: one launch of the forward kernel a hop, at the global
+  offsets of the rank's queries and of the visiting key block, merged by
+  log-sum-exp, and a second ring pass of the backward kernels; or
+  ``impl="xla"``, ``ku``'s plain online-softmax update.
+  :func:`ring_attention_emulated` runs W ranks of it in one process.
 
 Contract, as ``ku.pallas.flash_attention._fwd_pallas``: q (B, H, N, D),
 k/v (B, Hkv, KN, D)/(B, Hkv, KN, Dv) with H a multiple of Hkv (query head j
@@ -550,3 +556,374 @@ def flash_attention(q, k, v, **kw):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, kw)
     return flash_fwd(q, k, v, **kw)[0]
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (sequence parallelism).
+# ---------------------------------------------------------------------------
+
+
+class _P2PRing:
+    """This process's rank of a ring over one mesh dimension's process group.
+    ``ranks`` is (this rank,); :meth:`rotate` sends each tensor to rank + 1
+    and takes rank − 1's (the reverse with ``back``) through
+    ``dist.batch_isend_irecv``. At world size 1 the rotation is the identity
+    and no P2P op is issued."""
+
+    def __init__(self, group, world: int, rank: int):
+        import torch.distributed as dist
+
+        self.group, self.world, self.ranks = group, world, (rank,)
+        self._next = dist.get_global_rank(group, (rank + 1) % world)
+        self._prev = dist.get_global_rank(group, (rank - 1) % world)
+
+    def rotate(self, per_rank, back: bool = False):
+        if self.world == 1:
+            return per_rank
+        import torch.distributed as dist
+
+        (tensors,) = per_rank
+        to, frm = (self._prev, self._next) if back else (self._next, self._prev)
+        outs = tuple(torch.empty_like(t) for t in tensors)
+        ops = []
+        for t, o in zip(tensors, outs):
+            ops += [dist.P2POp(dist.isend, t.contiguous(), to, self.group),
+                    dist.P2POp(dist.irecv, o, frm, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [outs]
+
+    def scatter(self, x, local: int):
+        return [_SeqScatter.apply(x, self, local)]
+
+    def gather(self, parts):
+        return _SeqGather.apply(parts[0], self)
+
+    def all_gather(self, x):
+        """The ranks' ``x`` concatenated along the sequence (dim 2)."""
+        if self.world == 1:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=2)
+
+
+class _EmulatedRing:
+    """W ranks of a ring in one process, in rank order: ``ranks`` is
+    0..W−1 and :meth:`rotate` hands rank r − 1's tensors to rank r (rank
+    r + 1's with ``back``), where the P2P ring would send them."""
+
+    def __init__(self, world: int):
+        if world < 1:
+            raise ValueError(f"world must be >= 1, got {world}")
+        self.world, self.ranks = world, tuple(range(world))
+
+    def rotate(self, per_rank, back: bool = False):
+        w = self.world
+        return [per_rank[(r + 1) % w if back else (r - 1) % w] for r in range(w)]
+
+    def scatter(self, x, local: int):
+        return [x.narrow(2, r * local, local) for r in self.ranks]
+
+    def gather(self, parts):
+        return torch.cat(parts, dim=2)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """This rank's slice of the sequence (dim 2); backward all-gathers the
+    slices' gradients, so that every rank holds the global gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ring, local):
+        ctx.ring = ring
+        return x.narrow(2, ring.ranks[0] * local, local).contiguous()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return ctx.ring.all_gather(g), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' slices all-gathered along the sequence; backward keeps this
+    rank's slice of the (replicated) output gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring, ctx.local = ring, x.shape[2]
+        return ring.all_gather(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return g.narrow(2, ctx.ring.ranks[0] * ctx.local, ctx.local), None
+
+
+class _Rotate(torch.autograd.Function):
+    """The ring's rotation, differentiable: the gradients rotate back."""
+
+    @staticmethod
+    def forward(ctx, ring, *tensors):
+        ctx.ring = ring
+        return ring.rotate([tensors])[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        return (None,) + ctx.ring.rotate([grads], back=True)[0]
+
+
+def _hop_kw(kw, seg_q, seg_k, q_off, k_off):
+    """One hop's keyword arguments for the flash kernels: the masks, the
+    segment ids of my queries and of the visiting key block, and the global
+    offsets of both when causal (``ku``'s ``_hop_offsets``)."""
+    out = dict(softmax_scale=kw["softmax_scale"], causal=kw["causal"], window=kw["window"])
+    if kw["causal"]:
+        out.update(q_offset=q_off, k_offset=k_off)
+    if seg_q is not None:
+        out["segment_ids"] = (seg_q, seg_k)
+    return out
+
+
+def _ring_fwd(ring, qs, ks, vs, seg_qs, seg_ks, kw):
+    """W hops of the flash forward, one launch per rank and hop, every hop
+    launched on every rank (a hop wholly in a rank's causal future masks
+    every pair and merges with weight 0); the hops merged by log-sum-exp
+    into an f32 (o, lse) carry, as ``ku``'s ``local_fwd_impl``. Returns each
+    rank's (o in q's dtype, lse)."""
+    w, local = ring.world, qs[0].shape[2]
+    o = [torch.zeros(*q.shape[:3], v.shape[-1], dtype=torch.float32, device=q.device)
+         for q, v in zip(qs, vs)]
+    lse = [torch.full(q.shape[:3], _MASKED, dtype=torch.float32, device=q.device)
+           for q in qs]
+    blocks = [(k, v) + (() if seg_ks is None else (s,))
+              for k, v, s in zip(ks, vs, seg_ks or ks)]
+    for i in range(w):
+        for j, my in enumerate(ring.ranks):
+            src = (my - i) % w
+            o_i, lse_i = flash_fwd(qs[j], blocks[j][0], blocks[j][1], **_hop_kw(
+                kw, seg_qs and seg_qs[j], seg_ks and blocks[j][2], my * local, src * local))
+            # A row with no live key in this hop has lse_i = -1e30 and o_i =
+            # 0: its weight exp(lse_i - lse_new) is 0 once any hop had one.
+            lse_new = torch.logaddexp(lse[j], lse_i)
+            o[j] = (o[j] * torch.exp(lse[j] - lse_new)[..., None]
+                    + o_i.float() * torch.exp(lse_i - lse_new)[..., None])
+            lse[j] = lse_new
+        if i < w - 1:  # the last hop's blocks are not needed again
+            blocks = ring.rotate(blocks)
+    return [x.to(q.dtype) for x, q in zip(o, qs)], lse
+
+
+def _bwd_hop(q, k, v, do, lse, delta, **kw):
+    if q.device.type == "cuda":
+        return (flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),) + \
+            flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    if q.device.type == "cpu":
+        return (flash_bwd_dq_torch(q, k, v, do, lse, delta, **kw),) + \
+            flash_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+def _ring_bwd(ring, qs, ks, vs, os, lses, dos, seg_qs, seg_ks, kw):
+    """The second ring pass, as ``ku``'s ``local_bwd_impl``: one launch each
+    of the dq and the dk/dv kernel per rank and hop, from the merged o and
+    the global lse (so a pair masked on its hop gets probability 0); dq
+    sums at home in f32, dk/dv sum in f32 and travel with their block, so
+    that after W rotations they are at the block's owner."""
+    w, local = ring.world, qs[0].shape[2]
+    deltas = [_delta(o, do) for o, do in zip(os, dos)]
+    dq = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
+    blocks = [(k, v, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+               torch.zeros(v.shape, dtype=torch.float32, device=v.device))
+              + (() if seg_ks is None else (s,))
+              for k, v, s in zip(ks, vs, seg_ks or ks)]
+    for i in range(w):
+        for j, my in enumerate(ring.ranks):
+            src = (my - i) % w
+            k, v, dk, dv = blocks[j][:4]
+            dq_i, dk_i, dv_i = _bwd_hop(qs[j], k, v, dos[j], lses[j], deltas[j], **_hop_kw(
+                kw, seg_qs and seg_qs[j], seg_ks and blocks[j][4], my * local, src * local))
+            dq[j] += dq_i.float()
+            blocks[j] = (k, v, dk + dk_i.float(), dv + dv_i.float()) + blocks[j][4:]
+        if i < w - 1:
+            blocks = ring.rotate(blocks)
+        else:  # only the gradients go home
+            blocks = ring.rotate([b[2:4] for b in blocks])
+    return ([x.to(q.dtype) for x, q in zip(dq, qs)],
+            [b[0].to(k.dtype) for b, k in zip(blocks, ks)],
+            [b[1].to(v.dtype) for b, v in zip(blocks, vs)])
+
+
+class _RingFlash(torch.autograd.Function):
+    """The ``impl="pallas"`` ring: each rank's local (q, k, v) → its o, with
+    the kernels' backward (``ku``'s ``local_pallas`` custom_vjp). Tensors
+    come flat, rank by rank: q_0..q_{n-1}, k_0.., v_0..."""
+
+    @staticmethod
+    def forward(ctx, ring, kw, seg_qs, seg_ks, *qkv):
+        n = len(ring.ranks)
+        qs, ks, vs = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
+        os, lses = _ring_fwd(ring, qs, ks, vs, seg_qs, seg_ks, kw)
+        ctx.save_for_backward(*qkv, *os, *lses)
+        ctx.ring, ctx.kw, ctx.segs = ring, kw, (seg_qs, seg_ks)
+        return tuple(os)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *dos):
+        n = len(ctx.ring.ranks)
+        saved = ctx.saved_tensors
+        qs, ks, vs = saved[:n], saved[n:2 * n], saved[2 * n:3 * n]
+        os, lses = saved[3 * n:4 * n], saved[4 * n:]
+        dq, dk, dv = _ring_bwd(ctx.ring, qs, ks, vs, os, lses, dos, *ctx.segs, ctx.kw)
+        return (None, None, None, None, *dq, *dk, *dv)
+
+
+def _online_block_update(q, k_blk, v_blk, m, l, acc, scale, q_pos, k_pos_start,
+                         k_len, causal, chunk=512, window=None, seg_q=None,
+                         seg_k_blk=None):
+    """``ku``'s ``_online_block_update`` in plain torch: merge one K/V block
+    into an online-softmax carry (m, l, acc) in ``chunk``-wide pieces, the
+    block padded to whole chunks (padded keys masked). Masked scores are
+    -1e30, so a row with no live key at all averages V, padding included,
+    as ``ku``'s does."""
+    kn = k_blk.shape[2]
+    chunk = min(chunk, kn)
+    num = -(-kn // chunk)
+    pad = num * chunk - kn
+    if pad:
+        k_blk = torch.nn.functional.pad(k_blk, (0, 0, 0, pad))
+        v_blk = torch.nn.functional.pad(v_blk, (0, 0, 0, pad))
+        if seg_q is not None:
+            seg_k_blk = torch.nn.functional.pad(seg_k_blk, (0, pad), value=-1)
+    for ci in range(num):
+        k_i = k_blk[:, :, ci * chunk:(ci + 1) * chunk]
+        v_i = v_blk[:, :, ci * chunk:(ci + 1) * chunk]
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k_i) * scale
+        k_pos_i = k_pos_start + ci * chunk + torch.arange(chunk, device=q.device)
+        mask = (k_pos_i - k_pos_start < k_len)[None, :]
+        if causal:
+            mask = mask & (k_pos_i[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos_i[None, :] < window)
+        s = torch.where(mask[None, None], s, _MASKED)
+        if seg_q is not None:
+            seg_k_i = seg_k_blk[:, ci * chunk:(ci + 1) * chunk]
+            s = torch.where((seg_q[:, :, None] == seg_k_i[:, None, :])[:, None], s, _MASKED)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v_i.to(p.dtype))
+        m = m_new
+    return m, l, acc
+
+
+def _ring_xla(ring, qs, ks, vs, seg_qs, seg_ks, kw, chunk):
+    """``ku``'s ``impl="xla"`` ring (``local_xla``) in plain torch, autograd
+    through it; the P2P ring's rotation is differentiable (:class:`_Rotate`)."""
+    w, local = ring.world, qs[0].shape[2]
+    rotate = ring.rotate if isinstance(ring, _EmulatedRing) else (
+        lambda per_rank: [_Rotate.apply(ring, *per_rank[0])])
+    wide = dict(dtype=torch.promote_types(qs[0].dtype, torch.float32), device=qs[0].device)
+    carry = [(torch.full(q.shape[:3], _MASKED, **wide), torch.zeros(q.shape[:3], **wide),
+              torch.zeros(*q.shape[:3], v.shape[-1], **wide)) for q, v in zip(qs, vs)]
+    blocks = list(zip(ks, vs))
+    segs = seg_ks
+    for i in range(w):
+        for j, my in enumerate(ring.ranks):
+            src = (my - i) % w
+            q_pos = my * local + torch.arange(local, device=qs[j].device)
+            carry[j] = _online_block_update(
+                qs[j], blocks[j][0], blocks[j][1], *carry[j], kw["softmax_scale"], q_pos,
+                src * local, local, kw["causal"], chunk, window=kw["window"],
+                seg_q=seg_qs and seg_qs[j], seg_k_blk=segs and segs[j])
+        if i < w - 1:
+            blocks = rotate(blocks)
+            if segs is not None:
+                segs = [s[0] for s in ring.rotate([(s,) for s in segs])]
+    return [(acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+            for (_, l, acc), q in zip(carry, qs)]
+
+
+def _ring(ring, q, k, v, softmax_scale, causal, chunk, impl, window, segment_ids):
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"impl must be 'pallas' or 'xla', got {impl!r}")
+    _check(q, k, v, causal, window)
+    b, h, n, _ = q.shape
+    if k.shape[2] != n:
+        raise ValueError(f"ring attention is self-attention: {n} queries, "
+                         f"{k.shape[2]} keys")
+    if n % ring.world:
+        raise ValueError(f"sequence length {n} does not divide over {ring.world} ranks")
+    local = n // ring.world
+    segs = _norm_segments(segment_ids, b, n, n, q.device)
+    if impl == "xla" and k.shape[1] != h:
+        # GQA: the plain update wants matched heads (ku repeats them too).
+        k = k.repeat_interleave(h // k.shape[1], dim=1)
+        v = v.repeat_interleave(h // v.shape[1], dim=1)
+    qs, ks, vs = (ring.scatter(x, local) for x in (q, k, v))
+    seg_qs = seg_ks = None
+    if segs is not None:
+        seg_qs = [segs[0][:, r * local:(r + 1) * local] for r in ring.ranks]
+        seg_ks = [segs[1][:, r * local:(r + 1) * local].contiguous() for r in ring.ranks]
+    kw = dict(softmax_scale=softmax_scale, causal=causal, window=window)
+    if impl == "pallas":
+        outs = list(_RingFlash.apply(ring, kw, seg_qs, seg_ks, *qs, *ks, *vs))
+    else:
+        outs = _ring_xla(ring, qs, ks, vs, seg_qs, seg_ks, kw, chunk)
+    return ring.gather(outs)
+
+
+def ring_attention(q, k, v, mesh, axis_name: str = "data", softmax_scale: float = 1.0,
+                   causal: bool = False, chunk: int = 512, impl: str = "pallas",
+                   window: Optional[int] = None, segment_ids=None):
+    """Sequence-parallel self-attention over the ``axis_name`` dimension of
+    ``mesh`` (a ``DeviceMesh``, :func:`ku_torch.dist.make_mesh`), ``ku``'s
+    ``ring_attention``.
+
+    Every rank passes the same GLOBAL q (B, H, N, D), k/v (B, Hkv, N, D) and
+    (B, N) ``segment_ids``; N must divide by the W ranks. Each rank keeps its
+    N/W queries (and their segment ids); the K/V blocks (and the key segment
+    ids) rotate to rank + 1 each hop, through ``batch_isend_irecv`` over the
+    dimension's process group (at W = 1 the rotation is skipped: no P2P op).
+    The ranks' outputs are all-gathered along N and the global output is
+    returned; its gradient reaches q, k and v as the global gradients (each
+    rank's slices all-gathered), for a loss that every rank computes alike.
+
+    ``impl="pallas"``: each hop launches the flash forward kernel (#3) at
+    the global offsets of my queries and of the visiting keys (causal), the
+    hops merged by log-sum-exp in f32; the backward is a second ring pass of
+    the dq and dk/dv kernels (#4) from the merged output and the global lse
+    (W launches of each a call and rank). On CPU tensors the kernels' plain
+    versions run. ``impl="xla"``: ``ku``'s chunked online-softmax update in
+    plain torch (``chunk`` wide), GQA by repeating the KV heads, autograd
+    through it; no kernel. ``window`` (requires ``causal``) is a sliding
+    window over global positions.
+
+    A query row with no live key on a hop gets o = 0 and lse = -1e30 from
+    the kernel and merges with weight 0; a row with no live key at all
+    gets 0 from ``"pallas"`` and ``ku``'s mean of V from ``"xla"``."""
+    from ku_torch.dist.mesh import axis_info
+
+    group, world, rank = axis_info(mesh, axis_name)
+    return _ring(_P2PRing(group, world, rank), q, k, v, softmax_scale, causal, chunk,
+                 impl, window, segment_ids)
+
+
+def ring_attention_emulated(q, k, v, world: int, softmax_scale: float = 1.0,
+                            causal: bool = False, chunk: int = 512,
+                            impl: str = "pallas", window: Optional[int] = None,
+                            segment_ids=None):
+    """:func:`ring_attention` with ``world`` ranks emulated in one process
+    (a test aid, as ``cd_gibbs_dp.cd_train_dp_emulated``): the same per-hop
+    code runs for each rank in rank order and the rotation hands each rank
+    its predecessor's block, so W ranks run on one device. ``"pallas"``
+    launches W² forward kernels a call (W per rank) and as many of each
+    backward kernel."""
+    return _ring(_EmulatedRing(world), q, k, v, softmax_scale, causal, chunk, impl,
+                 window, segment_ids)

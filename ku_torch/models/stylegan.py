@@ -45,6 +45,8 @@ from ku_torch.nn.convolution import (
     to_channels_first,
     to_channels_last,
 )
+from ku_torch.dist.parallel import parallel_matmul
+from ku_torch.nn.common import leaky_relu
 from ku_torch.nn.core import EqualizedLRDense
 from ku_torch.nn.normalization import AdaptiveINWithStyle, pixel_norm
 from ku_torch.nn.transformer import Dense
@@ -65,7 +67,7 @@ def _at_least_f32(dtype: torch.dtype) -> torch.dtype:
 
 
 def _leaky(x):
-    return F.leaky_relu(x, 0.2)
+    return leaky_relu(x, 0.2)
 
 
 def upsample_bilinear_2x(x):
@@ -82,7 +84,7 @@ class _FlaxDense(Dense):
     its input to its ``dtype`` first)."""
 
     def forward(self, x):
-        return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
+        return parallel_matmul(self, x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
 
 
 class _FlaxEmbed(nn.Module):

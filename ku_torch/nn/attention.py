@@ -71,6 +71,12 @@ gp + (i − gp) mod window past the sinks and attends the occupied slots that
 are sinks or inside the window, in plain torch on every device: ``ku``
 reads the ring with XLA, never with its decode kernel.
 
+``parallel`` (a :class:`ku_torch.dist.parallel.TensorParallel`, set by
+:func:`ku_torch.dist.parallel.shard_heads_`) makes the layer compute its
+rank's heads from its rank's columns of ``W_Q`` / ``W_K`` / ``W_V`` and rows
+of ``W_multi_head``, the output closed by an all-reduce; its caches hold
+those heads.
+
 ``quant_weights`` (True, or ``"w8a8"``) makes ``W_Q``, ``W_K``, ``W_V`` and
 ``W_multi_head`` int8 with f32 ``<name>_scale`` beside each, filled by
 :func:`ku_torch.nn.quant.quantize_weights`; ``W_gen_S`` / ``W_add_S_*`` stay
@@ -87,6 +93,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ku_torch.dist.parallel import copy_to, reduce_sum
 from ku_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_paged,
@@ -191,6 +198,9 @@ class MultiHeadAttention(nn.Module):
         self.rope = rope
         self.rope_base = rope_base
         self.flash_decode = flash_decode
+        # A ku_torch.dist.parallel.TensorParallel when the heads are split
+        # over a process group (head-parallel serving).
+        self.parallel = None
 
         d = d_output if d_input is None else d_input
         h = num_head
@@ -313,6 +323,10 @@ class MultiHeadAttention(nn.Module):
         h = self.num_head
         hkv = self.num_kv_head if self.num_kv_head is not None else h
         d_k_h, d_v_h = d_k // h, d_v // h
+        par = self.parallel if self.parallel is not None and self.parallel.world > 1 else None
+        if par is not None:  # this rank's heads; W_multi_head closes with a sum
+            h, hkv = h // par.world, hkv // par.world
+            q, k, v = (copy_to(t, par.group) for t in (q, k, v))
 
         def split_heads(x, dh, nh=h):
             b, n = x.shape[0], x.shape[1]
@@ -351,7 +365,9 @@ class MultiHeadAttention(nn.Module):
             head = self._dense(q_h, k_h, v_h, m, d_k, segment_ids, deterministic)
 
         b, n = q.shape[0], q.shape[1]
-        y = self._project(head.transpose(1, 2).reshape(b, n, d_v), "W_multi_head")
+        y = self._project(head.transpose(1, 2).reshape(b, n, h * d_v_h), "W_multi_head")
+        if par is not None:
+            y = reduce_sum(y, par.group)
         return (y, cache) if decode else y
 
     def _project(self, x, name):
@@ -364,7 +380,7 @@ class MultiHeadAttention(nn.Module):
                              self.quant_weights == "w8a8")
 
     def _dense(self, q_h, k_h, v_h, m, d_k, segment_ids, deterministic):
-        h = self.num_head
+        h = q_h.shape[1]
         if k_h.shape[1] != h:  # GQA on the dense path: materialise the repeat
             k_h = k_h.repeat_interleave(h // k_h.shape[1], dim=1)
             v_h = v_h.repeat_interleave(h // v_h.shape[1], dim=1)

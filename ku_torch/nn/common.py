@@ -15,8 +15,8 @@ Activation = Optional[Union[str, Callable]]
 
 _ACTIVATIONS = {
     "relu": F.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, 0.2),
-    "lrelu": lambda x: F.leaky_relu(x, 0.2),
+    "leaky_relu": lambda x: leaky_relu(x, 0.2),
+    "lrelu": lambda x: leaky_relu(x, 0.2),
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softmax": lambda x: torch.softmax(x, dim=-1),

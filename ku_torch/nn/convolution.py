@@ -26,8 +26,9 @@ tests/test_torch_stylegan_layers.py):
   zero and takes no gradient.
 
 ``ku``'s ``lane_packed`` layers (a TPU space-to-depth layout with the same
-parameters) are not ported: the models accept ``lane_packing`` and compute
-the unpacked function.
+parameters) compute the unpacked function here: the models accept
+``lane_packing``; the packed functions themselves are
+:mod:`ku_torch.nn.packed`, for parity.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ku_torch.dist.parallel import parallel_matmul
 from ku_torch.nn.common import (
     Activation,
     equalized_coeff,
@@ -39,11 +40,12 @@ class EqualizedLRDense(nn.Module):
             (in_features, features), generator, device, torch.float32))
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
+        self.parallel = None  # a ku_torch.dist.parallel.TensorParallel when split
 
     def forward(self, x):
         coeff = equalized_coeff(self.gain, self.lrmul, math.prod(x.shape[1:]))
         dtype = self.dtype or x.dtype
-        y = x.to(dtype) @ (self.kernel * coeff).to(dtype)
+        y = parallel_matmul(self, x.to(dtype), (self.kernel * coeff).to(dtype))
         if self.bias is not None:
             y = y + self.bias.to(dtype)
         return self.activation(y)

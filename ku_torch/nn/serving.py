@@ -41,7 +41,20 @@ them, without touching the other rows.
   in paged mode into scratch). ``chunk`` may be a sequence of sizes,
   picked per round by :meth:`ContinuousBatcher._pick_chunk`, as in ``ku``.
 
-Not ported yet: ``mesh=``, which raises ``NotImplementedError``.
+- ``mesh`` (a ``DeviceMesh``, :func:`ku_torch.dist.make_mesh`): the serving
+  replica is the mesh. Over ``model_axis`` the model is split in place for
+  head-parallel serving (:func:`ku_torch.dist.parallel.shard_heads_`, ``ku``'s
+  ``shard_decode_state``): each rank holds its heads' columns of ``W_Q`` /
+  ``W_K`` / ``W_V``, their rows of ``W_multi_head``, its slice of the FFN,
+  and its heads of every KV cache (dense, paged, int8); an all-reduce closes
+  ``W_multi_head`` and ``Dense_1``, and the decode kernels read the rank's
+  heads. When the head counts do not divide the axis it warns and keeps
+  the model whole. Over ``data_axis`` the slots split: rank r holds slots
+  r·B/D .. (r+1)·B/D − 1 of every per-row cache entry (a page pool stays
+  whole on each rank; its rows' tables split), runs the model on them, and
+  the logits are gathered, so that every rank samples all B rows with the
+  same generator and runs the same schedule. Every rank calls the batcher
+  alike, with the same requests.
 """
 
 from __future__ import annotations
@@ -52,7 +65,10 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ku_torch.dist.mesh import axis_info, check_mesh
+from ku_torch.dist.parallel import shard_heads_
 from ku_torch.nn.decoding import _mark_seen, chosen_logprob, greedy
 
 _POOL_LEAVES = ("pages_k", "pages_v", "key_scale_pages", "value_scale_pages")
@@ -84,7 +100,11 @@ class ContinuousBatcher:
       eos_id: a slot frees as soon as its sequence emits it (returned).
       generator: ``torch.Generator`` for stochastic samplers.
       model_kwargs: extra keyword arguments for the model.
-      mesh: not ported (raises ``NotImplementedError``).
+      mesh: a ``DeviceMesh``; the model is split over it in place (see the
+        module's notes).
+      model_axis / data_axis / num_head / num_kv_head: the mesh dimensions
+        of the heads and of the slots (None: slots not split), and the head
+        counts to check against the model axis (``ku``'s names).
     """
 
     def __init__(self, model, *, embed: Callable, readout: Callable,
@@ -92,11 +112,9 @@ class ContinuousBatcher:
                  chunk=8, sampler: Callable = greedy,
                  return_logprobs: bool = False, eos_id: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 model_kwargs: Optional[dict] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...) is not ported to ku_torch yet; it "
-                "comes with the multi-device slice of the port")
+                 model_kwargs: Optional[dict] = None, mesh=None,
+                 model_axis: str = "model", data_axis: Optional[str] = None,
+                 num_head: Optional[int] = None, num_kv_head: Optional[int] = None):
         if prompt_len < 2:
             raise ValueError("prompt_len must be >= 2")
         chunks = ((chunk,) if isinstance(chunk, (int, np.integer))
@@ -121,20 +139,49 @@ class ContinuousBatcher:
         self._generator = (generator if generator is not None else
                            torch.Generator(device=self._device).manual_seed(0))
         self._spec = None  # {cache key: (shape, dtype)}
+        self._data = None  # (group, first slot, end) of this rank under data_axis
+        if mesh is not None:
+            shard_heads_(model, check_mesh(mesh), model_axis, num_head, num_kv_head)
+            if data_axis is not None and axis_info(mesh, data_axis)[1] > 1:
+                group, world, rank = axis_info(mesh, data_axis)
+                if num_slots % world:
+                    raise ValueError(f"num_slots {num_slots} does not divide over the "
+                                     f"{world} ranks of {data_axis!r}")
+                part = num_slots // world
+                self._data = (group, rank * part, (rank + 1) * part)
 
     # -- device programs ------------------------------------------------
 
+    def _gather_logits(self, logits, mine, n):
+        """Under ``data_axis``: the (n, V) logits of a batch whose rows
+        ``mine`` this rank computed, each row from the rank that holds it (a
+        sum over the group of buffers that are zero elsewhere, exact)."""
+        full = torch.zeros(n, self._vocab, dtype=logits.dtype if logits is not None
+                           else self._logit_dtype, device=self._device)
+        if logits is not None:
+            full[mine] = logits
+        dist.all_reduce(full, group=self._data[0])
+        return full
+
     @torch.no_grad()
-    def _prefill(self, cache, prompts, lengths, pos0, seen):
+    def _prefill(self, cache, prompts, lengths, pos0, seen, mine=None):
         """Prefill a sub-batch of right-padded prompts; returns (cache,
-        first token, its logprob, seen)."""
+        first token, its logprob, seen). ``mine`` (under ``data_axis``): the
+        rows this rank holds, which alone it runs through the model, the
+        logits of all rows gathered."""
         n, p = prompts.shape
         dev = self._device
-        y, cache = self._model(
-            [self._embed(prompts, pos0 + torch.arange(p, device=dev))],
-            decode=True, cache=cache, prompt_lengths=lengths, **self._kw)
-        y_last = y[torch.arange(n, device=dev), lengths.long() - 1][:, None]
-        logits = self._readout(y_last)[:, 0]
+        logits = None
+        run = mine is None or bool(mine.any())
+        if run:
+            pr, ln = (prompts, lengths) if mine is None else (prompts[mine], lengths[mine])
+            y, cache = self._model(
+                [self._embed(pr, pos0 + torch.arange(p, device=dev))],
+                decode=True, cache=cache, prompt_lengths=ln, **self._kw)
+            y_last = y[torch.arange(len(pr), device=dev), ln.long() - 1][:, None]
+            logits = self._readout(y_last)[:, 0]
+        if mine is not None:
+            logits = self._gather_logits(logits, mine, n)
         if self._needs_seen:
             if seen is None:
                 seen = torch.zeros(n, logits.shape[-1], dtype=torch.bool,
@@ -162,11 +209,14 @@ class ContinuousBatcher:
         tok, lp, seen = self._pending, self._pending_lp, self._seen
         cache = self._cache
         lens = torch.as_tensor(lengths, dtype=torch.int64, device=self._device)
+        lo, hi = (0, self.num_slots) if self._data is None else self._data[1:]
         toks, lps = [], []
         for _ in range(chunk):
-            y, cache = self._model([self._embed(tok[:, None], lens[:, None])],
+            y, cache = self._model([self._embed(tok[lo:hi, None], lens[lo:hi, None])],
                                    decode=True, cache=cache, **self._kw)
             logits = self._readout(y)[:, 0]
+            if self._data is not None:
+                logits = self._gather_logits(logits, slice(lo, hi), self.num_slots)
             if self._needs_seen:
                 seen = _mark_seen(seen, tok)  # the fed token joins the sequence
                 nxt = self._sampler(logits, self._generator, seen)
@@ -189,7 +239,8 @@ class ContinuousBatcher:
         length, or pool pages, page size and table width). It is a uniform
         prefill, so that a ring cache gets as far as showing its
         ``cache_pos`` entry, which is refused here with ``ku``'s message."""
-        B, P, dev = self.num_slots, self.prompt_len, self._device
+        P, dev = self.prompt_len, self._device
+        B = self.num_slots if self._data is None else self._data[2] - self._data[1]
         x = self._embed(torch.zeros(B, P, dtype=torch.int64, device=dev),
                         torch.arange(P, device=dev))
         with warnings.catch_warnings():
@@ -202,7 +253,8 @@ class ContinuousBatcher:
                 "ContinuousBatcher does not support ring (window) caches — "
                 "their slot contents depend on global position history and "
                 "cannot be row-merged")
-        self._vocab = self._readout(y[:, :1]).shape[-1]
+        logits = self._readout(y[:, :1])
+        self._vocab, self._logit_dtype = logits.shape[-1], logits.dtype
         self._spec = {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
         pools = {shape[0::3] for k, (shape, _) in self._spec.items()
                  if _leaf(k) == "pages_k"}  # (NP, Hkv, D, pg): slots minor
@@ -231,10 +283,14 @@ class ContinuousBatcher:
                 "max_decode_len to cover prompt+budget+chunk")
 
     def _new_cache(self):
-        """A zero cache for all slots; every layer's page table is the one
-        shared table tensor."""
+        """A zero cache for all slots (this rank's, under ``data_axis``);
+        every layer's page table is the one shared table tensor (its rows of
+        this rank's slots)."""
         dev = self._device
-        return {k: (self._table if _leaf(k) == "page_table"
+        table = getattr(self, "_table", None)
+        if table is not None and self._data is not None:
+            table = table[self._data[1]:self._data[2]]
+        return {k: (table if _leaf(k) == "page_table"
                     else torch.zeros(shape, dtype=dt, device=dev))
                 for k, (shape, dt) in self._spec.items()}
 
@@ -242,12 +298,25 @@ class ContinuousBatcher:
         """The host's tables onto the device table (read by every layer)."""
         self._table.copy_(torch.from_numpy(self._tables))
 
-    def _sub_cache(self, rows, pos0, first_round):
+    def _mine(self, rows):
+        """(which of the slots ``rows`` this rank holds, their indices in its
+        cache) under ``data_axis``; (None, rows) without it."""
+        if self._data is None:
+            return None, rows
+        _, lo, hi = self._data
+        mine = (rows >= lo) & (rows < hi)
+        return mine, rows[mine] - lo
+
+    def _sub_cache(self, rows, pos0, first_round, split=True):
         """The cache a sub-batch prefill of slots ``rows`` runs on. Dense: the
         rows' own entries (nothing in round 0). Paged: the pool tensors
-        themselves, the rows' table rows, and cache indices at ``pos0``."""
+        themselves, the rows' table rows, and cache indices at ``pos0``.
+        Under ``data_axis`` (and ``split``), this rank's rows of them."""
+        mine, local = self._mine(rows) if split else (None, rows)
         if not self._paged:
-            return {} if first_round else {k: v[rows] for k, v in self._cache.items()}
+            return {} if first_round else {k: v[local] for k, v in self._cache.items()}
+        if mine is not None:
+            rows = rows[mine]
         sub_table = self._table[rows]
         index = torch.full((len(rows),), pos0, dtype=torch.int32,
                            device=self._device)
@@ -325,7 +394,8 @@ class ContinuousBatcher:
         self._tables[0, :n_pre] = self._shared_ids
         self._push_tables()
         dev = self._device
-        self._prefill(self._sub_cache(torch.tensor([0], device=dev), 0, True),
+        # Every rank writes the prefix into its own whole pool.
+        self._prefill(self._sub_cache(torch.tensor([0], device=dev), 0, True, split=False),
                       torch.from_numpy(prefix)[None].to(dev),
                       torch.tensor([n], dtype=torch.int32, device=dev), 0, None)
         self._tables[0] = 0  # row 0 is not a request
@@ -480,14 +550,15 @@ class ContinuousBatcher:
             sub_ln = torch.tensor([len(piece) for _, piece, _ in writers],
                                   dtype=torch.int32, device=dev)
             pos0 = plen_pre + c * P
+            mine, local = self._mine(rows)
             fresh, tok, lp, seen = self._prefill(
                 self._sub_cache(rows, pos0, c == 0),
                 torch.from_numpy(sub).to(dev), sub_ln, pos0,
-                self._seen[rows] if self._needs_seen else None)
+                self._seen[rows] if self._needs_seen else None, mine)
             for k, v in fresh.items():
                 # Paged pools were written in place; tables are the host's.
                 if not paged or _leaf(k) == "cache_index":
-                    self._cache[k][rows] = v
+                    self._cache[k][local] = v
             if self._needs_seen:
                 self._seen[rows] = seen
             # The first generated token comes from each row's final chunk.

@@ -14,6 +14,12 @@
   ``num_new_features`` channels. The batch splits as ``(g, -1)``, so sample
   j shares a group with j + k·(n/g), over the channels-last layout.
 
+Under :func:`ku_torch.dist.parallel.data_parallel` (a batch split over a
+process group's ranks, the GAN engine's ``mesh=``), the batch mean and the
+stddev groups are the whole batch's: the mean all-reduced, the stddev
+layer's input all-gathered (its groups straddle the ranks), each with the
+gradient of a loss that the ranks hold in parts.
+
 Random draws come from an explicit ``torch.Generator`` (``ku``'s ``'style'``
 stream); they cannot match JAX's.
 """
@@ -23,7 +29,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ku_torch.dist.parallel import all_reduce_sum, data_group, gather_rows
 
 
 class StyleMixingRegularization(nn.Module):
@@ -67,7 +76,11 @@ class TruncationTrick(nn.Module):
             beta[:, :self.cutoff] = self.psi
         mean = self.moving_mean
         if not deterministic:
-            mean = self.momentum * mean + (1.0 - self.momentum) * x[:, 0].mean(dim=0)
+            batch_mean = x[:, 0].mean(dim=0)
+            group = data_group()
+            if group is not None:  # the whole batch's mean, equal rows a rank
+                batch_mean = all_reduce_sum(batch_mean, group) / dist.get_world_size(group)
+            mean = self.momentum * mean + (1.0 - self.momentum) * batch_mean
             with torch.no_grad():
                 self.moving_mean.copy_(mean)
         return mean + (x - mean) * beta
@@ -83,6 +96,15 @@ class MinibatchStddevConcat(nn.Module):
         self.group_size, self.num_new_features = group_size, num_new_features
 
     def forward(self, x):
+        group = data_group()
+        if group is None:
+            return self._concat(x)
+        # The groups straddle the ranks' rows: gather the whole batch, take
+        # this rank's rows of the result.
+        n, rank = x.shape[0], dist.get_rank(group)
+        return self._concat(gather_rows(x, group))[rank * n:(rank + 1) * n]
+
+    def _concat(self, x):
         n, h, w, c = x.shape
         g = min(self.group_size, n)
         f = self.num_new_features

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ku_torch.dist.parallel import parallel_matmul
 from ku_torch.nn.attention import (
     SIMILARITY_TYPE_SCALED,
     MultiHeadAttention,
@@ -42,7 +43,9 @@ _TRUNC_STD = 0.87962566103423978
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``kernel`` (in, out) with lecun-normal init,
-    ``bias`` zeros (none with ``use_bias=False``); ``y = x @ kernel + bias``."""
+    ``bias`` zeros (none with ``use_bias=False``); ``y = x @ kernel + bias``.
+    ``parallel`` splits the product over a process group
+    (:func:`ku_torch.dist.parallel.parallel_matmul`)."""
 
     def __init__(self, in_features: int, features: int, *, device="cuda",
                  dtype=None, generator: Optional[torch.Generator] = None,
@@ -53,9 +56,10 @@ class Dense(nn.Module):
                                                 generator, device, dtype))
         self.bias = (nn.Parameter(torch.zeros(features, device=device, dtype=dtype))
                      if use_bias else None)
+        self.parallel = None  # a ku_torch.dist.parallel.TensorParallel when split
 
     def forward(self, x):
-        y = x @ self.kernel
+        y = parallel_matmul(self, x, self.kernel)
         return y if self.bias is None else y + self.bias
 
 

@@ -4,8 +4,8 @@ The same numpy-made inputs go through the flax module and its port, with
 ku's params carried across by ``state_dict_from_tree`` and loaded with
 ``strict=True``. Tolerance: f32 rtol/atol 1e-5 (the two frameworks sum in
 other orders; nothing here runs long enough to drift further). Also here:
-bf16 parameters cross between the packages bit for bit, and every feature
-not ported yet raises ``NotImplementedError``.
+bf16 parameters cross between the packages bit for bit, and the batcher
+refuses a mesh that is not a ``DeviceMesh``.
 """
 
 import inspect
@@ -248,7 +248,7 @@ def test_features_not_ported_raise():
     from ku_torch.nn import ContinuousBatcher
 
     block = Transformer(2, 8, causal=True, max_decode_len=8, device="cpu")
-    with pytest.raises(NotImplementedError):  # the multi-device batcher
+    with pytest.raises(TypeError, match="DeviceMesh"):  # the batcher takes a mesh
         ContinuousBatcher(block, embed=None, readout=None, num_slots=2,
                           prompt_len=4, max_decode_len=8, mesh=object())
     # Ported: paged and int8 caches, int8 weights (tests/test_torch_quant.py).

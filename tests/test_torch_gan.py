@@ -403,9 +403,10 @@ def test_gan_learns_mean():
 
 def test_mesh_is_not_ported():
     engine = _port(LSGAN)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+    # Ported: what is refused now is a mesh that is not a DeviceMesh.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         engine.fit_generator(_data_iter(np.random.default_rng(0), LSGAN), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         engine.fit_generator_progressively(lambda *a: None, mesh=object())
 
 

@@ -168,7 +168,7 @@ def test_batcher_guards(lm):
         cb.serve([np.zeros(2, np.int64)], [1, 2])
     with pytest.raises(ValueError, match="paged"):
         cb.serve([np.zeros(2, np.int64)], 3, shared_prefix=[1, 2])
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _batcher(lm, num_slots=2, prompt_len=4, mesh=object())
     cb = _batcher(lm, num_slots=2, prompt_len=4, chunk=2)
     cb.reset()

@@ -8,8 +8,8 @@
   key).
 - Name parity: every public name of ``ku``, of each of its subpackages and
   of each of its modules exists at the same place in ``ku_torch``
-  (``ku.pallas`` is ``ku_torch.kernels``), apart from the listed
-  exceptions, each still to port (ROADMAP.md §1 items 6 and 7).
+  (``ku.pallas`` is ``ku_torch.kernels``); the list of exceptions still to
+  port, ``NOT_PORTED``, is empty.
 """
 
 import importlib
@@ -30,17 +30,9 @@ import ku.backend_ext as kb
 import ku_torch
 import ku_torch.backend_ext as pb
 
-# Not ported yet, each with the ROADMAP item that ports it.
-NOT_PORTED = {
-    # §1 item 6, multi-device
-    "ku.dist": {"data_parallel_sharding", "replicate", "shard_gan_state",
-                "shard_decode_state", "shard_stacked_batches"},
-    "ku.dist.mesh": {"data_parallel_sharding", "replicate", "shard_gan_state",
-                     "shard_decode_state", "shard_stacked_batches"},
-    "ku.pallas.flash_attention": {"ring_attention"},
-    # §1 item 7, the TPU lane-packed layouts (the whole module)
-    "ku.nn.packed": None,
-}
+# Not ported yet: nothing. Each entry would name a ku module and the names
+# the port lacks (None: the whole module), and shrink as they came.
+NOT_PORTED = {}
 
 
 def _port_name(name: str) -> str:
@@ -112,7 +104,8 @@ def test_module_names_exist_in_the_port(name):
 
 def test_the_exceptions_are_still_missing():
     """Each listed exception is really absent from the port (so the list
-    shrinks as they come), and packed is the only whole module left."""
+    shrinks as they come), and every whole module it lists, and no other,
+    is missing: with the list empty, every module of ku is in the port."""
     for name, names in NOT_PORTED.items():
         if names is None:
             assert importlib.util.find_spec(_port_name(name)) is None, name
@@ -120,7 +113,7 @@ def test_the_exceptions_are_still_missing():
         port = importlib.import_module(_port_name(name))
         assert not any(hasattr(port, n) for n in names), name
     unported = [m for m in MODULES if importlib.util.find_spec(_port_name(m)) is None]
-    assert unported == ["ku.nn.packed"]
+    assert unported == sorted(m for m, names in NOT_PORTED.items() if names is None)
 
 
 # -- the backend shim ---------------------------------------------------------------
