@@ -1,7 +1,9 @@
 """Deep belief network: a greedy layer-wise stack of RBMs, in torch.
 
 Port of ``ku/ebm/dbn.py``, with its fixes of the reference: ``fit`` trains
-every stacked RBM, and ``inv_transform`` walks the stack backwards.
+every stacked RBM, and ``inv_transform`` walks the stack backwards. Under
+a torch profiler each layer of ``fit`` is the span ``ku_torch.dbn.layer<i>``
+around that RBM's ``fit`` and ``transform``.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 from ku_torch.ebm.rbm import RBM
+from ku_torch.utils.trace import trace
 
 
 class DBN:
@@ -36,8 +39,9 @@ class DBN:
         for i, rbm in enumerate(self.rbm_layers):
             if verbose:
                 print(f"DBN stack {i + 1}/{self.num_layers}")
-            rbm.fit(v_p, verbose=verbose, mesh=mesh)
-            v_p = rbm.transform(v_p)
+            with trace(f"ku_torch.dbn.layer{i}"):
+                rbm.fit(v_p, verbose=verbose, mesh=mesh)
+                v_p = rbm.transform(v_p)
         return self
 
     def transform(self, v, generator=None):

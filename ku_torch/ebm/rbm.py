@@ -24,7 +24,11 @@ differ from ``ku``'s threefry draws (same distributions).
 (:mod:`ku_torch.kernels.cd_gibbs`) when its device is a GPU, and that
 kernel's plain version on the CPU. ``hps["backend"] = "scan"`` asks for the
 per-step loop :func:`cd_epoch_scan` instead; ``"cuda"`` (or ``"pallas"`` in
-an old conf) asks for the kernel, and raises off the GPU.
+an old conf) asks for the kernel, and raises off the GPU. Under a torch
+profiler, ``fit`` is the span ``ku_torch.rbm.fit`` around ``.build`` (the
+parameters' first draws), ``.prep`` (the rows padded and masked) and the
+kernel's ``ku_torch.cd_gibbs.launch``; ``transform`` is
+``ku_torch.rbm.transform`` (:func:`ku_torch.utils.trace.trace`).
 
 ``RBM.fit(V, mesh=...)`` trains data-parallel over a
 :func:`ku_torch.dist.make_mesh` mesh, called on every rank with the whole
@@ -46,6 +50,7 @@ from torch import nn
 
 from ku_torch.core.rng import SeedSeq
 from ku_torch.utility import load_model_jh5, params_from_numpy, save_model_jh5
+from ku_torch.utils.trace import trace
 from ku_torch.dist.mesh import axis_info, cd_epoch_dp
 from ku_torch.kernels import cd_gibbs, cd_gibbs_dp
 from ku_torch.kernels.cd_gibbs import (
@@ -326,7 +331,8 @@ class RBM:
 
     def _ensure_built(self, v):
         if self.params is None:
-            self.build((v.shape if hasattr(v, "shape") else np.shape(v))[-1])
+            with trace("ku_torch.rbm.build"):
+                self.build((v.shape if hasattr(v, "shape") else np.shape(v))[-1])
 
     def _to_internal(self, v, move: bool = True) -> torch.Tensor:
         """Public (maybe complex) visible array → float32 tensor on the
@@ -350,9 +356,10 @@ class RBM:
 
     def transform(self, v, generator=None):
         """Sample hidden units given visible ones."""
-        self._ensure_built(v)
-        v = self._to_internal(v)
-        return sample_hidden(self.params, v, generator or self._generator(), self.mode)
+        with trace("ku_torch.rbm.transform"):
+            self._ensure_built(v)
+            v = self._to_internal(v)
+            return sample_hidden(self.params, v, generator or self._generator(), self.mode)
 
     def inv_transform(self, h, generator=None):
         """Sample visible units given hidden ones (complex64 in complex mode)."""
@@ -392,6 +399,10 @@ class RBM:
         dimension, for data-parallel training (see the module docstring);
         every rank calls ``fit`` with the whole ``V`` and moves only its own
         rows to its device."""
+        with trace("ku_torch.rbm.fit"):
+            return self._fit(V, verbose, mesh)
+
+    def _fit(self, V, verbose, mesh):
         backend = self.hps.get("backend")
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {_BACKENDS}")
@@ -399,22 +410,23 @@ class RBM:
             raise ValueError(f"backend {backend!r} runs the CUDA kernel, but "
                              f"this RBM is on {self.device}")
         self._ensure_built(V)
-        V = self._to_internal(V, move=mesh is None)
-        batch_size = int(self.hps["batch_size"])
-        epochs = int(self.hps["epochs"])
-        lr = float(self.hps["lr"])
-        k = int(self.hps.get("k", 1))
+        with trace("ku_torch.rbm.prep"):
+            V = self._to_internal(V, move=mesh is None)
+            batch_size = int(self.hps["batch_size"])
+            epochs = int(self.hps["epochs"])
+            lr = float(self.hps["lr"])
+            k = int(self.hps.get("k", 1))
 
-        n = V.shape[0]
-        steps = -(-n // batch_size)
-        padded = steps * batch_size
-        if padded == n:
-            v_all = V.contiguous()
-        else:
-            v_all = torch.zeros((padded, V.shape[1]), dtype=V.dtype, device=V.device)
-            v_all[:n] = V
-        mask = torch.zeros((padded,), dtype=torch.float32, device=V.device)
-        mask[:n] = 1.0
+            n = V.shape[0]
+            steps = -(-n // batch_size)
+            padded = steps * batch_size
+            if padded == n:
+                v_all = V.contiguous()
+            else:
+                v_all = torch.zeros((padded, V.shape[1]), dtype=V.dtype, device=V.device)
+                v_all[:n] = V
+            mask = torch.zeros((padded,), dtype=torch.float32, device=V.device)
+            mask[:n] = 1.0
 
         if mesh is not None:
             _, world, _ = axis_info(mesh)

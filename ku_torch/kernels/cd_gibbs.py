@@ -49,6 +49,7 @@ import torch
 
 from ku_torch.core.rng import box_muller, philox_uniforms
 from ku_torch.kernels import _build
+from ku_torch.utils.trace import trace
 
 MODE_VISIBLE_BERNOULLI = 0
 MODE_VISIBLE_GAUSSIAN = 1
@@ -219,27 +220,30 @@ def _launch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs, route,
             raise ValueError("cd_train_cuda takes contiguous float32 tensors")
     if not 0 <= int(seed) < 2**32:
         raise ValueError(f"seed {seed} is not in [0, 2**32)")
-    w, bh, bv = (t.clone() for t in tensors[:3])
     steps = v_all.shape[0] // batch_size
-    v_dim, h_dim = w.shape
-    code = _route_code(route, int(batch_size), v_dim, h_dim)
-    scores = torch.empty(steps * epochs, dtype=torch.float32, device=device)
-    # The global route's scratch; the cluster route keeps its own on chip.
-    rows = batch_size if code == 0 else 1
-    h_pos = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
-    v_neg = torch.empty(rows, v_dim, dtype=torch.float32, device=device)
-    h_neg = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
-    diff = torch.empty(rows, dtype=torch.float32, device=device)
+    v_dim, h_dim = tensors[0].shape
+    with trace("ku_torch.cd_gibbs.plan"):
+        code = _route_code(route, int(batch_size), v_dim, h_dim)
+    with trace("ku_torch.cd_gibbs.alloc"):
+        w, bh, bv = (t.clone() for t in tensors[:3])
+        scores = torch.empty(steps * epochs, dtype=torch.float32, device=device)
+        # The global route's scratch; the cluster route keeps its own on chip.
+        rows = batch_size if code == 0 else 1
+        h_pos = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
+        v_neg = torch.empty(rows, v_dim, dtype=torch.float32, device=device)
+        h_neg = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
+        diff = torch.empty(rows, dtype=torch.float32, device=device)
     lib = _library(probe)
-    err = lib.cd_gibbs_train(
-        v_all.data_ptr(), mask.data_ptr(), w.data_ptr(), bh.data_ptr(),
-        bv.data_ptr(), scores.data_ptr(), h_pos.data_ptr(), v_neg.data_ptr(),
-        h_neg.data_ptr(), diff.data_ptr(), steps, int(epochs), int(batch_size),
-        v_dim, h_dim, int(k), int(mode), float(lr), int(seed), code,
-        _cluster_code(cluster),
-        device.index if device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with trace("ku_torch.cd_gibbs.call"):
+        err = lib.cd_gibbs_train(
+            v_all.data_ptr(), mask.data_ptr(), w.data_ptr(), bh.data_ptr(),
+            bv.data_ptr(), scores.data_ptr(), h_pos.data_ptr(), v_neg.data_ptr(),
+            h_neg.data_ptr(), diff.data_ptr(), steps, int(epochs), int(batch_size),
+            v_dim, h_dim, int(k), int(mode), float(lr), int(seed), code,
+            _cluster_code(cluster),
+            device.index if device.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"cd_gibbs launch failed ({ROUTES[code]} route): "
                            f"{lib.cd_gibbs_error_string(err).decode()} ({err})")
@@ -258,10 +262,14 @@ def cd_train_cuda(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
     synchronise. Raises on anything else, and if the launch is refused
     (with the CUDA error; it never runs the other route instead). Adds one
     to ``cd_train_cuda.launches`` and to ``cd_train_cuda.by_route[route]``
-    per launch.
+    per launch. Under a torch profiler the call is the span
+    ``ku_torch.cd_gibbs.launch``, the checks its own time, with the children
+    ``.plan`` (the route), ``.alloc`` (the copies of the parameters and the
+    scratch) and ``.call`` (the C entry, which launches the kernel).
     """
-    params, scores, code = _launch(params, v_all, mask, seed, lr, k, mode,
-                                   batch_size, epochs, route, cluster)
+    with trace("ku_torch.cd_gibbs.launch"):
+        params, scores, code = _launch(params, v_all, mask, seed, lr, k, mode,
+                                       batch_size, epochs, route, cluster)
     cd_train_cuda.launches += 1
     cd_train_cuda.by_route[ROUTES[code]] += 1
     return params, scores

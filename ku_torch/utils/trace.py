@@ -1,7 +1,9 @@
 """Profiling and tracing (port of ``ku/utils/trace.py``).
 
 - :func:`trace`: a named region in the profile, ``torch.profiler
-  .record_function`` (``ku``: ``jax.profiler.TraceAnnotation``).
+  .record_function`` (``ku``: ``jax.profiler.TraceAnnotation``), while a
+  torch profiler runs; otherwise one shared context that does nothing, so
+  spans on the training path cost a function call when nobody traces.
 - :func:`step_trace`: the same, carrying the step number in its arguments
   (``ku``: ``StepTraceAnnotation``).
 - :func:`start_profile` / :func:`stop_profile`: one ``torch.profiler
@@ -21,18 +23,24 @@ import torch
 _ACTIVE = {}
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
 def trace(name: str = "TraceContext", **kwargs):
-    """Annotate a region; ``kwargs`` go into the event's arguments."""
+    """A context annotating a region; ``kwargs`` go into the event's
+    arguments. With no profiler running it is a shared null context, and no
+    event or argument string is made. The Chrome trace keeps the name but
+    not the arguments, so an identifier the trace must carry belongs in the
+    name."""
+    if not _profiling():
+        return _OFF
     args = ", ".join(f"{k}={v}" for k, v in kwargs.items()) or None
-    with torch.profiler.record_function(name, args):
-        yield
+    return torch.profiler.record_function(name, args)
 
 
-@contextlib.contextmanager
 def step_trace(name: str, step_num: int):
-    with torch.profiler.record_function(name, f"step_num={int(step_num)}"):
-        yield
+    return trace(name, step_num=int(step_num))
 
 
 def start_profile(logdir: str):
