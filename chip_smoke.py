@@ -1028,6 +1028,43 @@ def rbm_path(dev, name):
             f"{launch['batch_tile']}), us a step: " + json.dumps(
                 {k: round(v, 3) for k, v in split.items()}))
 
+    # Kernel #1's global route alone at the DBN's wide layers, batch 100:
+    # first held against the plain version over three steps (the last
+    # ragged and masked) at phase 3's tolerances, then 200 steps of the
+    # path's rows timed on the same plan: us a step beside the bound, the
+    # step's operations at the dense TF32 peak (half the bf16 one; the
+    # products run in 3xTF32).
+    dbn_global = {}
+    for v_dim, h_dim in ((V_DIM, 500), (500, 2000)):
+        check(cd_gibbs.route_for(100, v_dim, h_dim) == "global", f"{v_dim}x{h_dim} route")
+        gparams, gv, gm = problem(dev, v_dim, h_dim, 100, 3, 0, False, seed=13)
+        gv[-37:] = 0.0
+        gm[-37:] = 0.0
+        cargs = (gparams, gv, gm, 4321, LR, K, 0, 100, 1)
+        p_k, s_k = cd_gibbs.cd_train_cuda(*cargs)
+        torch.cuda.synchronize()
+        checked = cd_gibbs.last_launch()
+        check(checked["route"] == "global", f"{v_dim}x{h_dim}: {checked}")
+        p_p, s_p = cd_gibbs.cd_train_torch(*cargs)
+        what = f"{v_dim}x{h_dim} B 100, global route"
+        for n in p_k:
+            torch.testing.assert_close(p_k[n], p_p[n], rtol=1e-5, atol=1e-5,
+                                       msg=f"{n}, {what}")
+        torch.testing.assert_close(s_k, s_p, rtol=1e-4, atol=1e-4, msg=f"scores, {what}")
+        err = max(max(float((p_k[n] - p_p[n]).abs().max()) for n in p_k),
+                  float((s_k - s_p).abs().max()))
+        grun = (gparams, V[:200 * 100, :v_dim].contiguous(), torch.ones(200 * 100, device=dev),
+                99, LR, K, 0, 100, 1)
+        cd_gibbs.cd_train_cuda(*grun)
+        ms = timed_ms(lambda: cd_gibbs.cd_train_cuda(*grun), 3)
+        check(cd_gibbs.last_launch() == checked,
+              f"the timed plan {cd_gibbs.last_launch()} is not the checked {checked}")
+        bound_us = (2 * K + 3) * 2 * 100 * v_dim * h_dim / (peaks(name)[1] / 2) * 1e6
+        dbn_global[f"{v_dim}x{h_dim}"] = {"us_step": ms / 200 * 1e3, "bound_us": bound_us,
+                                          "max_abs_err": err}
+        log(f"cd_gibbs global route at {v_dim}x{h_dim}, batch 100: {ms / 200 * 1e3:.2f} us "
+            f"a step, bound {bound_us:.3f} us; max abs diff from plain {err:.3e}; {checked}")
+
     flops = (2 * K + 3) * 2 * BATCH * V_DIM * H_DIM * steps
     nbytes = 4 * (N * V_DIM + N + 2 * (V_DIM * H_DIM + V_DIM + H_DIM) + steps)
     peak_f32, _, peak_bw = peaks(name)
@@ -1046,13 +1083,14 @@ def rbm_path(dev, name):
         "source": "ku_torch/csrc/cd_gibbs.cu",
         "replaces": "ku/pallas/cd_gibbs.py:90",
         "launches": launches,
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max(max_abs_err, *(e["max_abs_err"] for e in dbn_global.values())),
         "ms": kernel_ms,
         # The RBM path is not profiled: one launch is the whole fit, and
         # `ms` is timed at the path's own shape (the cluster route, which
         # the path launches); the global route beside it.
         "path_ms": None,
         "global_route_ms": min(route_ms["global"]),
+        "dbn_global_us_step": dbn_global,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",

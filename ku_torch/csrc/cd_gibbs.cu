@@ -16,27 +16,31 @@
 // batch) contribute nothing. Bounds checks replace the TPU's 128-padding.
 //
 // What bounds it on an H100: the f32 work is (2k+3)·2·B·V·H operations per
-// step (128.5 MFLOP at k=1, B=128, V=784, H=128), 1.9 us at the card's
-// 67 TFLOP/s non-tensor f32 peak; the data is read once per epoch, far
-// below the memory bound. But the steps form a chain (each needs the
-// parameters the last one wrote) and one step is too small to fill the
-// card, so the kernel is bound by latency.
+// step (128.5 MFLOP at k=1, B=128, V=784, H=128), 0.26 us at the card's
+// 495 TFLOP/s TF32 tensor-core peak (the products run in 3xTF32); the data
+// is read once per epoch, far below the memory bound. But the steps form a
+// chain (each needs the parameters the last one wrote) and one step is too
+// small to fill the card, so the kernel is bound by latency: barriers and
+// round trips to shared memory or L2 between a step's phases.
 //
 // Two routes, chosen by the shape (ku_torch/kernels/cd_gibbs.py
-// route_for), one launch for the whole run on either:
+// route_for), one launch for the whole run on either, each step's products
+// run once over all the batch rows on the tensor cores in 3xTF32 (f32-exact)
+// on both:
 // - The cluster route (cd_cluster.cuh), for every shape whose slices fit a
 //   block's shared memory at 16 blocks: one thread-block cluster holds W
 //   split by visible rows in shared memory for the whole run, as ku's
-//   kernel holds it in VMEM, runs each step as batched products over all
-//   the rows on the tensor cores (3xTF32, f32-exact), exchanges partial
-//   activations and hidden units through distributed shared memory between
-//   cluster barriers, and adds the sums into W in shared memory; W, b_h,
-//   b_v go back to global memory at the end. At the RBM's shape a step
-//   takes about 84 us on an H100 (the global route 114 us).
-// - The global route (cd_gibbs_chain.cuh) for a larger W: one persistent
-//   cooperative grid, a block a batch row, W in global memory served from
-//   L2, two grid.sync() a step between the row-parallel chain and the sums
-//   over rows.
+//   kernel holds it in VMEM, exchanges partial activations and hidden units
+//   through distributed shared memory between cluster barriers, and adds
+//   the sums into W in shared memory; W, b_h, b_v go back to global memory
+//   at the end. At the RBM's shape a step takes about 70 us on an H100
+//   (the global route about 40 us).
+// - The global route (cd_grid.cuh) for a larger W: one persistent
+//   cooperative grid, a block an SM, W cut into tiles that the blocks hold
+//   in shared memory for the whole run (or read from L2 once a product
+//   where they do not fit); each product's partial sums meet in L2 between
+//   six grid.sync() a step, and each tile's owner adds the step's sums into
+//   its tile.
 // Both share their step code with the data-parallel statistics kernel
 // (cd_gibbs_dp.cu), whose apply adds the sums in the same expression
 // (sgd), so that a data-parallel run at world size 1 equals this run bit
@@ -54,6 +58,7 @@
 
 #include "cd_gibbs_chain.cuh"
 #include "cd_cluster.cuh"
+#include "cd_grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,25 +66,29 @@ namespace {
 
 using namespace cd;
 namespace cc = cd::cluster;
+namespace gd = cd::grid;
 
 // ---------------------------------------------------------------------------
-// The global route: one cooperative grid, cd_gibbs_chain.cuh's two phases.
+// The global route: one cooperative grid, cd_grid.cuh's step.
 // ---------------------------------------------------------------------------
 
 struct Args {
-  Chain c;            // the parameters (updated in place) and the scratch
+  gd::Plan p;
   const float* v;     // (steps * batch, V) data, zero rows past the end
   const float* mask;  // (steps * batch,) 0/1 row mask
-  float* w;           // (V, H), the same memory as c.w
+  float* w;           // (V, H), updated in place (or at the end: resident tiles)
   float* bh;          // (H,)
   float* bv;          // (V,)
   float* scores;      // (epochs * steps,)
-  int steps, epochs;
+  float* scratch;     // (p.scratch,)
+  int steps, epochs, k, mode;
   float lr;
+  uint32_t seed;
 };
 
-// Phase (b)'s sums added into the parameters: W += lr * sum, and the step's
-// score.
+// The step's sums added into the parameters: W += lr * sum in the tile in
+// shared memory (resident plans) or in global memory, the biases in global
+// memory, and the step's score.
 struct Update {
   float* w;
   float* bh;
@@ -87,47 +96,37 @@ struct Update {
   float* scores;
   float lr;
   uint32_t t;
-  __device__ void weight(size_t idx, float d) const { w[idx] = sgd(w[idx], lr, d); }
+  __device__ void weight(int s, size_t g, float d) const {
+    if (s >= 0) {
+      cc::cd_smem[s] = sgd(cc::cd_smem[s], lr, d);
+    } else {
+      w[g] = sgd(w[g], lr, d);
+    }
+  }
   __device__ void visible(int i, float d) const { bv[i] = sgd(bv[i], lr, d); }
   __device__ void hidden(int j, float d) const { bh[j] = sgd(bh[j], lr, d); }
   __device__ void score(float d, float c) const { scores[t] = d / fmaxf(c, 1.f); }
 };
 
-#ifdef CD_PROBE
-// The global route's probe: per step and block, the time at the step's
-// start, before and after each grid.sync().
-constexpr int kGlobalMarks = 5;
-#define CD_GLOBAL_MARK(t, mark)                                                \
-  do {                                                                         \
-    if (threadIdx.x == 0 && cc::g_probe && (int)(t) < cc::g_probe_steps)       \
-      cc::g_probe[((size_t)(t) * gridDim.x + blockIdx.x) * kGlobalMarks +      \
-                  (mark)] = cc::globaltimer();                                 \
-  } while (0)
-#else
-#define CD_GLOBAL_MARK(t, mark) \
-  do {                          \
-  } while (0)
-#endif
-
-__global__ void __launch_bounds__(kThreads) cd_gibbs_kernel(Args a) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
+__global__ void __launch_bounds__(cc::kCT, 1) cd_gibbs_kernel(Args a) {
+  const gd::Plan& p = a.p;
+  const gd::Ctx c{p, a.w, a.bh, a.bv, a.scratch, a.k, a.mode, a.seed, 0u};
+  if (p.resident) gd::load_tiles(c);
   const int total = a.steps * a.epochs;
-  const int batch = a.c.batch, vdim = a.c.vdim;
   for (int t = 0; t < total; ++t) {
     const int s = t % a.steps;
-    const float* vb = a.v + (size_t)s * batch * vdim;
-    const float* mb = a.mask + (size_t)s * batch;
-    CD_GLOBAL_MARK(t, 0);
-    for (int row = blockIdx.x; row < batch; row += gridDim.x)
-      chain_row(a.c, (uint32_t)t, vb, mb, row, smem);
-    CD_GLOBAL_MARK(t, 1);
-    grid.sync();
-    CD_GLOBAL_MARK(t, 2);
-    step_sums(a.c, vb, mb, Update{a.w, a.bh, a.bv, a.scores, a.lr, (uint32_t)t});
-    CD_GLOBAL_MARK(t, 3);
-    grid.sync();
-    CD_GLOBAL_MARK(t, 4);
+    gd::grid_step(c, (uint32_t)t, a.v + (size_t)s * p.batch * p.vdim,
+                  a.mask + (size_t)s * p.batch,
+                  Update{a.w, a.bh, a.bv, a.scores, a.lr, (uint32_t)t});
+  }
+  if (!p.resident) return;
+  for (int n = 0; n < p.per && gd::own(n) < p.tiles; ++n) {
+    const gd::Tile T = gd::tile_at(p, gd::own(n));
+    const int o = gd::w_at(p, n);
+    for (int e = threadIdx.x; e < T.rv * T.rh; e += cc::kCT) {
+      const int i = e / T.rh, j = e - i * T.rh;
+      a.w[(size_t)(T.i0 + i) * p.hdim + T.j0 + j] = cc::cd_smem[o + i * p.ldw + j];
+    }
   }
 }
 
@@ -216,10 +215,19 @@ int g_last[6] = {-1, 0, 0, 0, 0, 0};
 extern "C" {
 
 // Blocks of the global route's cooperative grid for this shape on
-// `device`, or a negative CUDA error code. The grid is no larger than the
-// co-resident block count.
+// `device` (one an SM), or a negative CUDA error code.
 int cd_gibbs_grid(int batch, int vdim, int hdim, int device) {
-  return cooperative_grid(cd_gibbs_kernel, batch, vdim, hdim, device);
+  gd::Plan p;
+  const int err = gd::choose(cd_gibbs_kernel, batch, vdim, hdim, device, &p);
+  return err != 0 ? -err : p.blocks;
+}
+
+// Floats of scratch a global-route launch at this shape on `device` needs
+// (cd_gibbs_train's `scratch`), or a negative CUDA error code.
+long long cd_gibbs_scratch(int batch, int vdim, int hdim, int device) {
+  gd::Plan p;
+  const int err = gd::choose(cd_gibbs_kernel, batch, vdim, hdim, device, &p);
+  return err != 0 ? -(long long)err : (long long)p.scratch;
 }
 
 // The cluster route's plan at cluster size C: out = {C, nr, hc, batch
@@ -233,14 +241,14 @@ void cd_gibbs_plan(int batch, int vdim, int hdim, int C, int* out) {
 
 // The whole run in one launch on `stream`: route 1 the cluster route (one
 // cluster of `cluster` blocks, 0 = 16 where the card allows it, else 8),
-// route 0 the global route (a cooperative grid). Returns the CUDA error of
-// the launch (0 on success); does not synchronise.
+// route 0 the global route (a cooperative grid, with `scratch` of
+// cd_gibbs_scratch floats). Returns the CUDA error of the launch (0 on
+// success); does not synchronise.
 int cd_gibbs_train(const float* v, const float* mask, float* w, float* bh,
-                   float* bv, float* scores, float* hpos, float* vneg,
-                   float* hneg, float* diff, int steps, int epochs, int batch,
-                   int vdim, int hdim, int k, int mode, float lr,
-                   unsigned int seed, int route, int cluster, int device,
-                   void* stream) {
+                   float* bv, float* scores, float* scratch, int steps,
+                   int epochs, int batch, int vdim, int hdim, int k, int mode,
+                   float lr, unsigned int seed, int route, int cluster,
+                   int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (route == 1) {
@@ -254,25 +262,24 @@ int cd_gibbs_train(const float* v, const float* mask, float* w, float* bh,
     for (int q = 0; q < 6; ++q) g_last[q] = last[q];
     return (int)cudaGetLastError();
   }
-  const int grid = cd_gibbs_grid(batch, vdim, hdim, device);
-  if (grid < 0) return -grid;
-  const Chain c{w,    bh,   bv,   hpos, vneg, hneg, diff, batch,
-                vdim, hdim, k,    mode, seed, 0u};
-  Args a{c, v, mask, w, bh, bv, scores, steps, epochs, lr};
+  gd::Plan p;
+  const int err = gd::choose(cd_gibbs_kernel, batch, vdim, hdim, device, &p);
+  if (err != 0) return err;
+  Args a{p, v, mask, w, bh, bv, scores, scratch, steps, epochs, k, mode, lr, seed};
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)cd_gibbs_kernel, dim3(grid),
-                                  dim3(kThreads), params,
-                                  shared_bytes(vdim, hdim),
-                                  (cudaStream_t)stream);
+  const int bytes = p.floats * (int)sizeof(float);
+  e = cudaLaunchCooperativeKernel((const void*)cd_gibbs_kernel, dim3(p.blocks),
+                                  dim3(cc::kCT), params, bytes, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  const int last[6] = {0, grid, 0, 0, 0, (int)shared_bytes(vdim, hdim)};
+  const int last[6] = {0, p.blocks, 0, p.bc, p.tiles, bytes};
   for (int q = 0; q < 6; ++q) g_last[q] = last[q];
   return (int)cudaGetLastError();
 }
 
 // What the last cd_gibbs_train launched: out = {route (0 global, 1
-// cluster), blocks, cluster size (0 on the global route), batch tile,
-// tiles, shared-memory bytes a block}.
+// cluster), blocks, cluster size (0 on the global route), batch tile
+// (the global route's chunk of rows), tiles (of the batch on the cluster
+// route, of W on the global route), shared-memory bytes a block}.
 void cd_gibbs_last_launch(int* out) {
   for (int q = 0; q < 6; ++q) out[q] = g_last[q];
 }
@@ -281,7 +288,7 @@ void cd_gibbs_last_launch(int* out) {
 // Probe builds only: every launch after this records timestamps
 // (%globaltimer) into `stamps` for its first `steps` steps: the cluster
 // route (steps, tiles, C, cc::kMarks), the global route (steps, blocks,
-// 5). A null `stamps` stops it.
+// gd::kMarks). A null `stamps` stops it.
 int cd_gibbs_probe(void* stamps, int steps) {
   cudaError_t e = cudaMemcpyToSymbol(cc::g_probe, &stamps, sizeof(stamps));
   if (e != cudaSuccess) return (int)e;

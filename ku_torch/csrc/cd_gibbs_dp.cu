@@ -27,12 +27,17 @@
 // (a) runs kernel #1's step code on kernel #1's two routes, chosen by the
 // shape: on the cluster route (cd_cluster.cuh) one thread-block cluster
 // loads W's slices into its shared memory at every launch and runs one
-// step; on the global route (cd_gibbs_chain.cuh) a cooperative grid runs
-// the row chain, grid.sync(), then the sums over rows. (c) adds lr * sum in
-// the expression kernel #1 uses (sgd), so a run at world size 1 equals
-// kernel #1's run bit for bit on either route (an all-reduce over one rank
-// leaves the buffer as it is). At world size W > 1 the sums over rows are
-// taken per rank and then over ranks, in another order: W moves by ulps.
+// step; on the global route (cd_grid.cuh) a cooperative grid of a block an
+// SM loads its W tiles into shared memory (or reads them from L2 once a
+// product where they do not fit) and runs the grid's step, each product
+// once over the rank's rows, the partial sums meeting in L2 between grid
+// barriers. The sums go to the buffer through an emitter in place of
+// kernel #1's update. (c) adds lr * sum in the expression kernel #1 uses
+// (sgd), so a run at world size 1 equals kernel #1's run bit for bit on
+// either route (an all-reduce over one rank leaves the buffer as it is,
+// and both kernels make the same plan at the same shape). At world size
+// W > 1 the sums over rows are taken per rank and then over ranks, in
+// another order: W moves by ulps.
 //
 // What bounds a rank's step on an H100: kernel #1's (2k+3)·2·(B/W)·V·H f32
 // operations (128.5 MFLOP at k = 1, B 128, V 784, H 128, W 1: 1.9 us at the
@@ -42,10 +47,10 @@
 // in practice, and each step also pays two launches and the all-reduce's
 // host time.
 //
-// What the design does about it: the step is kernel #1's (the statistics
-// launch takes about 86 us of device time on the cluster route, 136 us on
-// the global route, on an H100); the grid or cluster size is computed once a
-// run on the host; the payload is one contiguous buffer, so a step is one
+// What the design does about it: the step is kernel #1's (statistics and
+// apply take about 94 us cold on the cluster route and 75 us on the global
+// route at 784 x 128 on an H100); the grid's plan or the cluster size is
+// computed once a shape on the host; the payload is one contiguous buffer, so a step is one
 // all-reduce; the step is queued on the current stream and the host never
 // waits inside the loop. Fusing (c) into the next step's (a), or a CUDA
 // graph over the steps, would save host time a step and is left to a later
@@ -61,6 +66,7 @@
 
 #include "cd_gibbs_chain.cuh"
 #include "cd_cluster.cuh"
+#include "cd_grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -68,14 +74,15 @@ namespace {
 
 using namespace cd;
 namespace cc = cd::cluster;
+namespace gd = cd::grid;
 
 constexpr int kApplyThreads = 256;
 
-// Phase (b)'s sums written to the step's statistics buffer.
+// The step's sums written to the statistics buffer.
 struct Pack {
   float* buf;
   int vdim, hdim;
-  __device__ void weight(size_t idx, float d) const { buf[idx] = d; }
+  __device__ void weight(int, size_t idx, float d) const { buf[idx] = d; }
   __device__ void hidden(int j, float d) const {
     buf[(size_t)vdim * hdim + j] = d;
   }
@@ -89,17 +96,15 @@ struct Pack {
   }
 };
 
-// (a): vb, mb are the rank's rows of step t; every block reaches the
-// grid.sync(), including blocks that own no row.
-__global__ void __launch_bounds__(kThreads)
-    cd_dp_stats_kernel(Chain c, const float* vb, const float* mb, float* buf,
-                       uint32_t t) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  for (int row = blockIdx.x; row < c.batch; row += gridDim.x)
-    chain_row(c, t, vb, mb, row, smem);
-  grid.sync();
-  step_sums(c, vb, mb, Pack{buf, c.vdim, c.hdim});
+// (a) on the global route: vb, mb are the rank's rows of step t; the
+// block's W tiles loaded (resident plans), then cd_grid.cuh's step.
+__global__ void __launch_bounds__(cc::kCT, 1)
+    cd_dp_stats_kernel(gd::Plan p, const float* w, const float* bh, const float* bv,
+                       const float* vb, const float* mb, float* buf, float* scratch,
+                       int k, int mode, uint32_t seed, uint32_t t, uint32_t row0) {
+  const gd::Ctx c{p, w, bh, bv, scratch, k, mode, seed, row0};
+  if (p.resident) gd::load_tiles(c);
+  gd::grid_step(c, t, vb, mb, Pack{buf, p.vdim, p.hdim});
 }
 
 // (a) on the cluster route: W's slices loaded into the cluster, then
@@ -161,11 +166,22 @@ __global__ void __launch_bounds__(kApplyThreads)
 
 extern "C" {
 
-// Blocks of (a)'s cooperative grid for this shape on `device`, or a
-// negative CUDA error code. Also sets (a)'s shared-memory limit, so call it
-// once before the first launch at a shape.
+// Blocks of (a)'s cooperative grid for this shape on `device` (one an
+// SM), or a negative CUDA error code. Also sets (a)'s shared-memory limit
+// and checks that a block of the plan fits an SM, so call it once before
+// the first global-route launch at a shape.
 int cd_dp_grid(int batch, int vdim, int hdim, int device) {
-  return cooperative_grid(cd_dp_stats_kernel, batch, vdim, hdim, device);
+  gd::Plan p;
+  const int err = gd::choose(cd_dp_stats_kernel, batch, vdim, hdim, device, &p);
+  return err != 0 ? -err : p.blocks;
+}
+
+// Floats of scratch (a) on the global route needs at this shape on
+// `device`, or a negative CUDA error code.
+long long cd_dp_scratch(int batch, int vdim, int hdim, int device) {
+  gd::Plan p;
+  const int err = gd::choose(cd_dp_stats_kernel, batch, vdim, hdim, device, &p);
+  return err != 0 ? -(long long)err : (long long)p.scratch;
 }
 
 // The cluster route's cluster size for this shape (`cluster` if non-zero,
@@ -187,13 +203,15 @@ int cd_dp_cluster(int batch, int vdim, int hdim, int cluster, int device,
 
 // (a) for step `step` of a run, on `stream`: route 1 the cluster route on
 // `blocks` = C blocks from cd_dp_cluster, route 0 the global route on a
-// cooperative grid of `blocks` from cd_dp_grid. Returns the CUDA error of
-// the launch (0 on success); does not synchronise.
+// cooperative grid of `blocks` from cd_dp_grid (the plan at that count,
+// kept from the last step at this shape), with `scratch` of cd_dp_scratch
+// floats. Makes no attribute or occupancy call: cd_dp_cluster or cd_dp_grid
+// has made them. Returns the CUDA error of the launch (0 on success); does
+// not synchronise.
 int cd_dp_stats(const float* v, const float* mask, const float* w,
-                const float* bh, const float* bv, float* buf, float* hpos,
-                float* vneg, float* hneg, float* diff, int batch, int vdim,
-                int hdim, int k, int mode, unsigned int seed, int step,
-                unsigned int row0, int route, int blocks, int device,
+                const float* bh, const float* bv, float* buf, float* scratch,
+                int batch, int vdim, int hdim, int k, int mode, unsigned int seed,
+                int step, unsigned int row0, int route, int blocks, int device,
                 void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -208,15 +226,15 @@ int cd_dp_stats(const float* v, const float* mask, const float* w,
     for (int q = 0; q < 6; ++q) g_last[q] = last[q];
     return (int)cudaGetLastError();
   }
-  Chain c{w,    bh,   bv,   hpos, vneg, hneg, diff, batch,
-          vdim, hdim, k,    mode, seed, row0};
-  void* params[] = {&c, &v, &mask, &buf, &t};
-  e = cudaLaunchCooperativeKernel((const void*)cd_dp_stats_kernel, dim3(blocks),
-                                  dim3(kThreads), params,
-                                  shared_bytes(vdim, hdim),
-                                  (cudaStream_t)stream);
+  gd::Plan p = gd::plan_at(batch, vdim, hdim, blocks);
+  if (p.tiles == 0) return (int)cudaErrorInvalidConfiguration;
+  uint32_t s = (uint32_t)seed, r0 = (uint32_t)row0;
+  void* params[] = {&p, &w, &bh, &bv, &v, &mask, &buf, &scratch, &k, &mode, &s, &t, &r0};
+  const int bytes = p.floats * (int)sizeof(float);
+  e = cudaLaunchCooperativeKernel((const void*)cd_dp_stats_kernel, dim3(p.blocks),
+                                  dim3(cc::kCT), params, bytes, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  const int last[6] = {0, blocks, 0, 0, 0, (int)shared_bytes(vdim, hdim)};
+  const int last[6] = {0, p.blocks, 0, p.bc, p.tiles, bytes};
   for (int q = 0; q < 6; ++q) g_last[q] = last[q];
   return (int)cudaGetLastError();
 }

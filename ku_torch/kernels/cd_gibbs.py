@@ -12,9 +12,14 @@ from step to step. It has two routes, chosen by the shape alone
   rows, in its shared memory for the whole run, as ku's kernel holds it in
   VMEM, and runs each step as batched f32 products over all the batch rows,
   with cluster barriers and distributed shared memory between them;
-- the **global route** (``ku_torch/csrc/cd_gibbs_chain.cuh``) for a larger
-  W: one cooperative grid, a block a batch row, W read from L2, two
-  ``grid.sync()`` a step.
+- the **global route** (``ku_torch/csrc/cd_grid.cuh``) for a larger W: one
+  persistent cooperative grid of a block an SM; W cut into tiles that the
+  blocks hold in shared memory for the whole run (or read from L2 once a
+  product where they do not fit); each product runs once over all the
+  batch rows on the tensor cores, its partial sums meeting in L2 between six
+  ``grid.sync()`` a step, and each tile's owner adds the step's sums into
+  its tile. Latency bounds it: the barriers and the round trips to L2, not
+  the operations.
 
 The C entry reports what it launched; :func:`last_launch` reads it. Both
 source notes say what bounds the kernel on an H100 and what the design
@@ -150,11 +155,13 @@ def _library(probe: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(SOURCE, NAME + ("_probe" if probe else ""),
                                        flags)[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cd_gibbs_train.argtypes = [p] * 10 + [i] * 7 + [
+    lib.cd_gibbs_train.argtypes = [p] * 7 + [i] * 7 + [
         ctypes.c_float, ctypes.c_uint32, i, i, i, p]
     lib.cd_gibbs_train.restype = i
     lib.cd_gibbs_grid.argtypes = [i, i, i, i]
     lib.cd_gibbs_grid.restype = i
+    lib.cd_gibbs_scratch.argtypes = [i, i, i, i]
+    lib.cd_gibbs_scratch.restype = ctypes.c_longlong
     lib.cd_gibbs_plan.argtypes = [i, i, i, i, p]
     lib.cd_gibbs_plan.restype = None
     lib.cd_gibbs_last_launch.argtypes = [p]
@@ -170,8 +177,9 @@ def _library(probe: bool = False) -> ctypes.CDLL:
 def last_launch() -> dict:
     """What the last :func:`cd_train_cuda` launched, as its C entry reports
     it: route ("cluster" or "global"), blocks, cluster size (0 on the
-    global route), batch tile, tiles a step and shared-memory bytes a
-    block."""
+    global route), batch tile (the global route's chunk of rows), tiles
+    (of the batch on the cluster route, of W on the global route) and
+    shared-memory bytes a block."""
     words = (ctypes.c_int * 6)()
     _library().cd_gibbs_last_launch(words)
     return launch_report(words)
@@ -224,24 +232,21 @@ def _launch(params, v_all, mask, seed, lr, k, mode, batch_size, epochs, route,
     v_dim, h_dim = tensors[0].shape
     with trace("ku_torch.cd_gibbs.plan"):
         code = _route_code(route, int(batch_size), v_dim, h_dim)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    lib = _library(probe)
     with trace("ku_torch.cd_gibbs.alloc"):
         w, bh, bv = (t.clone() for t in tensors[:3])
         scores = torch.empty(steps * epochs, dtype=torch.float32, device=device)
         # The global route's scratch; the cluster route keeps its own on chip.
-        rows = batch_size if code == 0 else 1
-        h_pos = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
-        v_neg = torch.empty(rows, v_dim, dtype=torch.float32, device=device)
-        h_neg = torch.empty(rows, h_dim, dtype=torch.float32, device=device)
-        diff = torch.empty(rows, dtype=torch.float32, device=device)
-    lib = _library(probe)
+        scratch = (torch.empty(_scratch_floats(lib, int(batch_size), v_dim, h_dim, index),
+                               dtype=torch.float32, device=device) if code == 0 else None)
     with trace("ku_torch.cd_gibbs.call"):
         err = lib.cd_gibbs_train(
             v_all.data_ptr(), mask.data_ptr(), w.data_ptr(), bh.data_ptr(),
-            bv.data_ptr(), scores.data_ptr(), h_pos.data_ptr(), v_neg.data_ptr(),
-            h_neg.data_ptr(), diff.data_ptr(), steps, int(epochs), int(batch_size),
-            v_dim, h_dim, int(k), int(mode), float(lr), int(seed), code,
-            _cluster_code(cluster),
-            device.index if device.index is not None else torch.cuda.current_device(),
+            bv.data_ptr(), scores.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), steps, int(epochs),
+            int(batch_size), v_dim, h_dim, int(k), int(mode), float(lr), int(seed),
+            code, _cluster_code(cluster), index,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
@@ -280,11 +285,24 @@ cd_train_cuda.by_route = {r: 0 for r in ROUTES}
 
 
 def grid_size(batch_size, v_dim, h_dim, device=0) -> int:
-    """Blocks of the global route's cooperative grid at this shape."""
+    """Blocks of the global route's cooperative grid at this shape (one an
+    SM)."""
     grid = _library().cd_gibbs_grid(batch_size, v_dim, h_dim, device)
     if grid < 0:
         raise RuntimeError(_library().cd_gibbs_error_string(-grid).decode())
     return grid
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(lib, batch_size, v_dim, h_dim, device) -> int:
+    """Floats of scratch a global-route launch at this shape needs (the
+    C entry's plan: the partial sums of nv tiles of rows, the hidden and
+    visible units, the score's terms)."""
+    n = lib.cd_gibbs_scratch(batch_size, v_dim, h_dim, device)
+    if n < 0:
+        raise RuntimeError(f"cd_gibbs launch failed (global route): "
+                           f"{lib.cd_gibbs_error_string(-n).decode()} ({-n})")
+    return n
 
 
 # Probe marks of the cluster route (cd_cluster.cuh CD_MARK): the interval
@@ -297,15 +315,21 @@ CLUSTER_PHASES = ("(1) product", "barrier 1", "(b) owner: sums, barrier, h_pos",
                   "(3) product", "barrier 3", "(g) owner: sums, barrier, h_neg",
                   "barrier 4",
                   "(i) product", "(i) b_v sums", "(i) score", "update")
-GLOBAL_PHASES = ("phase (a)", "grid.sync 1", "phase (b)", "grid.sync 2")
+# Probe marks of the global route (cd_grid.cuh GRID_MARK), a step's phases
+# in order; with k > 1 the sweep's phases are the last sweep's, and "(2)"
+# holds the earlier sweeps.
+GLOBAL_PHASES = ("(1) v_pos W", "grid.sync 1", "(b) h_pos", "grid.sync 2",
+                 "(2) h W^T", "grid.sync 3", "(c) v_neg", "grid.sync 4",
+                 "(3) v_neg W", "grid.sync 5", "(d) h_neg", "grid.sync 6",
+                 "(u) dW, update, score")
 _MARKS = len(CLUSTER_PHASES) + 1
 
 
 def phase_split(params, v_all, mask, seed, lr, k, mode, batch_size, epochs,
                 route, cluster=None, skip=8):
     """Microseconds a step in each phase of a run on ``route``, from a probe
-    build of the kernel (``-DCD_PROBE``: thread 0 of every block stamps
-    %globaltimer at each phase's end; not the library the path runs).
+    build of the kernel (``-DCD_PROBE``: every block stamps %globaltimer
+    once all its threads end a phase; not the library the path runs).
 
     Returns {phase: mean us a step}, the mean over the steps after the
     first ``skip`` and over the blocks (each block's own intervals, waits

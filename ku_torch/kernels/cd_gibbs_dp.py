@@ -9,7 +9,7 @@ over the devices. Here each rank (one process per GPU) takes a step as
 - (a) :func:`cd_dp_stats_cuda`: the CD-k step of kernel #1 over the rank's
   rows of the step, on kernel #1's two routes (the shared step code of
   ``cd_cluster.cuh`` on one thread-block cluster that loads W into its
-  shared memory, or ``cd_gibbs_chain.cuh`` on a cooperative grid; chosen by
+  shared memory, or ``cd_grid.cuh`` on a cooperative grid; chosen by
   the shape, :func:`ku_torch.kernels.cd_gibbs.route_for`, and reported by
   :func:`last_launch`), its sums over those rows packed into one buffer of
   V·H + H + V + 2 floats (:func:`payload_size`): the W sums, the b_h sums,
@@ -83,7 +83,9 @@ def _library() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.cd_dp_grid.argtypes = [i, i, i, i]
     lib.cd_dp_grid.restype = i
-    lib.cd_dp_stats.argtypes = [p] * 10 + [i] * 5 + [u, i, u, i, i, i, p]
+    lib.cd_dp_scratch.argtypes = [i, i, i, i]
+    lib.cd_dp_scratch.restype = ctypes.c_longlong
+    lib.cd_dp_stats.argtypes = [p] * 7 + [i] * 5 + [u, i, u, i, i, i, p]
     lib.cd_dp_stats.restype = i
     lib.cd_dp_cluster.argtypes = [i, i, i, i, i, p]
     lib.cd_dp_cluster.restype = i
@@ -110,6 +112,16 @@ def grid_size(batch: int, v_dim: int, h_dim: int, device: int = 0) -> int:
     if grid < 0:
         _raise_on(-grid, "cd_dp_stats")
     return grid
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_size(batch: int, v_dim: int, h_dim: int, device: int = 0) -> int:
+    """Floats of scratch (a) needs on the global route at this shape (the
+    C entry's plan)."""
+    n = _library().cd_dp_scratch(batch, v_dim, h_dim, device)
+    if n < 0:
+        _raise_on(-n, "cd_dp_stats")
+    return n
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,14 +172,13 @@ def _check_cuda(tensors, what):
 
 
 def workspace(rows: int, v_dim: int, h_dim: int, device):
-    """The buffers (a) writes: the statistics buffer and the chain's scratch
-    for ``rows`` local rows."""
+    """The buffers (a) writes on the card: the statistics buffer and the
+    global route's scratch for ``rows`` local rows."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
     f32 = dict(dtype=torch.float32, device=device)
     return {"buf": torch.empty(payload_size(v_dim, h_dim), **f32),
-            "hpos": torch.empty(rows, h_dim, **f32),
-            "vneg": torch.empty(rows, v_dim, **f32),
-            "hneg": torch.empty(rows, h_dim, **f32),
-            "diff": torch.empty(rows, **f32)}
+            "scratch": torch.empty(scratch_size(rows, v_dim, h_dim, index), **f32)}
 
 
 def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work,
@@ -190,18 +201,15 @@ def stats_launcher(params, v_steps, m_steps, seed, k, mode, row0, work,
         raise ValueError(f"seed {seed} or row0 {row0} is not in [0, 2**32)")
     rows, v_dim = v_steps.shape[1:]
     h_dim = w.shape[1]
+    code = _route_code(route, rows, v_dim, h_dim)
     if (work["buf"].numel() != payload_size(v_dim, h_dim)
-            or work["vneg"].shape != (rows, v_dim)
-            or work["hpos"].shape != (rows, h_dim)
-            or work["hneg"].shape != (rows, h_dim)):
+            or (code == 0 and work["scratch"].numel() < scratch_size(rows, v_dim, h_dim, dev))):
         raise ValueError(f"the workspace does not fit {rows} rows of "
                          f"{v_dim}x{h_dim}")
     lib, buf = _library(), work["buf"]
     fixed = (w.data_ptr(), bh.data_ptr(), bv.data_ptr(), buf.data_ptr(),
-             work["hpos"].data_ptr(), work["vneg"].data_ptr(),
-             work["hneg"].data_ptr(), work["diff"].data_ptr(), rows, v_dim,
-             h_dim, int(k), int(mode), int(seed))
-    code = _route_code(route, rows, v_dim, h_dim)
+             work["scratch"].data_ptr(), rows, v_dim, h_dim, int(k), int(mode),
+             int(seed))
     blocks = (cluster_size(rows, v_dim, h_dim, _cluster_code(cluster), dev) if code
               else grid_size(rows, v_dim, h_dim, dev))
     tail = (int(row0), code, blocks, dev,

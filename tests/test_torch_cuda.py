@@ -116,9 +116,7 @@ ROUTE_CASES = ([(37, 45, 40, 3, 2, 1, 0, True), (6, 4, 16, 4, 2, 2, 0, True),
                + [(100, 128, 64, 3, 1, 1, 0, False), (784, 128, 128, 2, 1, 1, 0, False)])
 
 
-@pytest.mark.parametrize("route,cluster", [("cluster", None), ("cluster", 8), ("global", None)])
-@pytest.mark.parametrize("case", ROUTE_CASES)
-def test_each_route_matches_plain(device, case, route, cluster):
+def _route_compare(device, case, route, cluster=None):
     v_dim, h_dim, batch, steps, epochs, k, mode, saturated = case
     tol = ((1e-5, 1e-6), (1e-5, 1e-6)) if saturated else ((1e-5, 1e-5), (1e-4, 1e-4))
     params, v_all, mask = _problem(device, v_dim, h_dim, batch, steps, mode, saturated)
@@ -132,11 +130,64 @@ def test_each_route_matches_plain(device, case, route, cluster):
         assert launch["cluster"] == launch["blocks"] == (cluster or 16)
         assert (launch["batch_tile"], launch["tiles"], launch["smem_bytes"]) == (
             plan["batch_tile"], plan["tiles"], plan["smem_bytes"])
+    else:
+        assert launch["blocks"] == cd_gibbs.grid_size(batch, v_dim, h_dim)
+        assert launch["cluster"] == 0 and 0 < launch["smem_bytes"] <= cd_gibbs.SMEM_BUDGET
     p_p, s_p = cd_gibbs.cd_train_torch(*args)
     for name in NAMES:
         torch.testing.assert_close(p_k[name], p_p[name], rtol=tol[0][0], atol=tol[0][1],
                                    msg=name)
     torch.testing.assert_close(s_k, s_p, rtol=tol[1][0], atol=tol[1][1])
+
+
+@pytest.mark.parametrize("route,cluster", [("cluster", None), ("cluster", 8), ("global", None)])
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_each_route_matches_plain(device, case, route, cluster):
+    _route_compare(device, case, route, cluster)
+
+
+# The global route at the DBN's wide layers (784 x 500 and 500 x 2000 at
+# batch 100, three steps, the last ragged and masked), which the cluster
+# route cannot hold; CD-2 in Gaussian mode over two steps, the second ragged
+# and masked (a third step takes these random weights from ~19 to ~600 and
+# the plain version in float32 itself 2e-4 from float64); and a W too large
+# for the grid's shared memory, whose tiles come from L2 once a product.
+GLOBAL_CASES = [(784, 500, 100, 3, 1, 1, 0, False), (500, 2000, 100, 3, 1, 1, 0, False),
+                (784, 500, 100, 2, 1, 2, 1, False), (8192, 2048, 8, 2, 1, 1, 0, True)]
+# Batches whose rows do not fit a block's shared memory at once, so the
+# plan takes them in chunks (its batch tile below the batch), the last batch
+# ragged and masked: 300 rows in chunks of 176 at 784 x 500; 200 rows in
+# chunks of 72 at 500 x 2000, CD-2, saturated (at 300 rows the first step's
+# update would cancel b_v = 200 for a third of the visible units, which then
+# sit near their thresholds: no longer saturated).
+CHUNK_CASES = [(784, 500, 300, 2, 1, 1, 0, False), (500, 2000, 200, 2, 1, 2, 0, True)]
+
+
+@pytest.mark.parametrize("case", GLOBAL_CASES + CHUNK_CASES)
+def test_global_route_matches_plain_at_wide_shapes(device, case):
+    v_dim, h_dim, batch = case[:3]
+    assert cd_gibbs.route_for(batch, v_dim, h_dim) == "global"
+    _route_compare(device, case, "global")
+    assert (cd_gibbs.last_launch()["batch_tile"] < batch) == (case in CHUNK_CASES)
+
+
+def test_a_global_run_is_one_cd_gibbs_kernel(device):
+    # roofline.cd_global pairs each global launch with one such kernel.
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    params, v_all, mask = _problem(device, 784, 500, 100, 2, 0, False)
+    cd_gibbs.cd_train_cuda(params, v_all, mask, 1, 1e-3, 1, 0, 100, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cd_gibbs.cd_train_cuda(params, v_all, mask, 1, 1e-3, 1, 0, 100, 1)
+        torch.cuda.synchronize()
+    assert cd_gibbs.last_launch()["route"] == "global"
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and re.search(r"\bcd_gibbs_kernel\b", e.name)]
+    assert len(kernels) == 1, kernels
 
 
 @pytest.mark.parametrize("shape", [(128, 784, 128), (128, 784, 256), (128, 256, 128),
@@ -1133,6 +1184,35 @@ def test_dp_kernels_at_world_one_equal_kernel_one_on_each_route(device, mode, ro
     p_1, s_1 = cd_gibbs.cd_train_cuda(*args, route=route)
     torch.cuda.synchronize()
     assert cd_gibbs.last_launch()["route"] == route
+    for name in NAMES:
+        assert torch.equal(p_dp[name], p_1[name]), name
+    assert torch.equal(s_dp, s_1)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_dp_kernels_at_world_one_equal_kernel_one_where_no_tile_divides(device, mode):
+    # V 203 and H 97 are odd: every tile of the global route's plan (sides
+    # multiples of 8) is ragged at the edges.
+    params, v_all, mask = _problem(device, 203, 97, 40, 3, mode, False)
+    args = (params, v_all, mask, 1234, 1e-3, 2, mode, 40, 2)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args, route="global")
+    assert cd_gibbs_dp.last_launch()["route"] == "global"
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args, route="global")
+    torch.cuda.synchronize()
+    assert cd_gibbs_dp.last_launch()["tiles"] == cd_gibbs.last_launch()["tiles"] > 1
+    for name in NAMES:
+        assert torch.equal(p_dp[name], p_1[name]), name
+    assert torch.equal(s_dp, s_1)
+
+
+def test_dp_kernels_at_world_one_equal_kernel_one_over_batch_chunks(device):
+    v_dim, h_dim, batch = CHUNK_CASES[0][:3]
+    params, v_all, mask = _problem(device, v_dim, h_dim, batch, 2, 0, False)
+    args = (params, v_all, mask, 1234, 1e-3, 1, 0, batch, 1)
+    p_dp, s_dp = cd_gibbs_dp.cd_train_dp_emulated(1, *args, route="global")
+    p_1, s_1 = cd_gibbs.cd_train_cuda(*args, route="global")
+    torch.cuda.synchronize()
+    assert cd_gibbs_dp.last_launch()["batch_tile"] == cd_gibbs.last_launch()["batch_tile"] < batch
     for name in NAMES:
         assert torch.equal(p_dp[name], p_1[name]), name
     assert torch.equal(s_dp, s_1)
