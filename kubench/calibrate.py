@@ -6,9 +6,10 @@ For each seed, at the cell's own size, on the card, in one process:
 
 - ``program``: ``--jobs`` jobs of the program as a run makes them, each
   judged against the reference (its lower readings);
-- ``control``: the reference itself in the program's place, its products
-  in TF32, the nearest precision below the configuration's float32 with
-  TF32 off;
+- ``control``: ``Driver.control``, the reference itself in the
+  program's place at the nearest precision below the one the
+  configuration states (for the float32 CD configurations, TF32 off: its
+  products in TF32);
 - each fault of the driver's ``FAULTS``, planted in the program by the
   driver's ``fault``.
 

@@ -5,13 +5,15 @@ spans)``, which makes the run's inputs with the mix's generator and reads
 its settings from the configuration and the mix, with:
 
 - ``job(seed)``: one call into the program, a
-  :class:`kubench.harness.jobs.Job`;
+  :class:`kubench.harness.jobs.Job`, whose ``peak`` names the precision
+  its operations are counted at;
 - ``mark()``: the program's counters at the window's start;
 - ``summary(jobs)``: (what the counters say of the window, printed; the
   number of launches the program made otherwise than it plans or than
   the jobs recorded, which has to be 0);
 - ``check(job)``: (the numbers that decide ``correct``, from the
-  reference; diagnostics that are printed and not compared);
+  reference, each with a limit of that name in the configuration's
+  ``limits``; diagnostics that are printed and not compared);
 - ``control(seed)``: the reference in the program's place, in the next
   precision down.
 

@@ -15,7 +15,9 @@ class Job:
     launch, in order, with its shape and the route the program reports;
     ``scores``: the tensors whose entries must all be finite, read once the
     window has closed; ``answer``: what the driver's ``check`` judges, kept
-    only for the sampled jobs."""
+    only for the sampled jobs; ``peak``: the column of ``peaks.json`` (the
+    card's dense FLOP/s in the job's own precision) at which ``mfu``
+    counts its operations."""
     seed: int
     samples: int
     flops: int
@@ -23,6 +25,7 @@ class Job:
     scores: list = field(default_factory=list)
     answer: object = None
     wall_s: float = 0.0
+    peak: str = "tf32"
 
 
 @dataclass
@@ -39,6 +42,13 @@ class Run:
 
     def note(self, msg: str) -> None:
         self.notes.append(msg)
+
+    def flops_by_peak(self) -> dict:
+        """The window's operations, summed by their jobs' ``peak``."""
+        out = {}
+        for job in self.jobs:
+            out[job.peak] = out.get(job.peak, 0) + job.flops
+        return out
 
     def launches(self, route: str) -> list:
         return [l for job in self.jobs for l in job.launches if l["route"] == route]

@@ -59,11 +59,12 @@ def parse(argv):
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, t0: float,
-             device=None, traffic=None) -> dict:
-    """One run; returns the result's dict, or raises. ``device`` and
-    ``traffic`` are for the benchmark's own tests: they skip the look for a
-    card and replace the cell's mix."""
-    cell = spec.load_cell(name)
+             device=None, traffic=None, small=False, root=spec.ROOT) -> dict:
+    """One run; returns the result's dict, or raises. ``device``,
+    ``traffic``, ``small`` and ``root`` are for the benchmark's own tests:
+    they skip the look for a card, replace the cell's mix, run the cell at
+    its ``"small"`` size and find it in another checkout."""
+    cell = spec.load_cell(name, root=root, small=small)
     if traffic is not None:
         cell.traffic = traffic
     import torch
@@ -152,7 +153,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t0: float,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
             if m["unit"] == "%":
                 print(f"{m['name']} {value:.6g} % ({power}; peaks {run.peaks['match']}: "
-                      f"tf32 {run.peaks['tf32']:g} FLOP/s, {run.peaks['bytes_per_s']:g} B/s)"
+                      f"{peak_rates(run)}, {run.peaks['bytes_per_s']:g} B/s)"
                       if on_card else f"{m['name']} {value:.6g} %", file=sys.stderr)
     for msg in run.notes:
         print(msg, file=sys.stderr)
@@ -169,6 +170,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t0: float,
     result["card"] = power
     result["checks"] = checks
     return result
+
+
+def peak_rates(run) -> str:
+    """The dense peaks the window's jobs are counted at, as
+    ``tf32 4.95e+14 FLOP/s``."""
+    return ", ".join(f"{p} {run.peaks[p]:g} FLOP/s" if p in run.peaks else f"{p} not in peaks.json"
+                     for p in sorted(run.flops_by_peak()))
 
 
 def main(argv, t0: float) -> int:

@@ -23,6 +23,11 @@ def run(cell, seed=2**31 + 11):
 
 
 @pytest.mark.parametrize("cell", ["rbm_mnist.cd1", "dbn_hinton06.cd1"])
+def test_the_cd_cells_compare_scores_and_changes(cell):
+    assert set(spec.load_cell(cell).config["limits"]) >= {"loss_gap", "delta_gap"}
+
+
+@pytest.mark.parametrize("cell", ["rbm_mnist.cd1", "dbn_hinton06.cd1"])
 def test_a_sound_run_is_correct(cell):
     result = run(cell)
     assert result["correct"], result["checks"]

@@ -1,7 +1,11 @@
 """The harness on the CPU: every name in BENCHMARK.json finds its files,
-the operation and byte counts, the end-to-end arithmetic over a window
-with a stall, and the trace readers on a made-up trace. One test runs a
-cell on the card and skips without one."""
+every number a cell's check returns has its limit, the ``"small"``
+presets, the operation and byte counts, the end-to-end arithmetic over a
+window with a stall, ``mfu`` at each job's own peak, and the trace readers
+on a made-up trace. One test runs a cell on the card and skips without
+one. The per-cell checks are functions of a BENCHMARK.json and a root, so
+that a cell defined elsewhere (``test_kubench_contract.py``) passes the
+same ones."""
 
 import json
 import re
@@ -9,51 +13,114 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
-from kubench.harness import counts, spec, trace as tr
+from kubench.harness import card, counts, spec, trace as tr, traffic as tf
 from kubench.harness.jobs import Job, Run
 
 BENCH = spec.load_benchmark()
+CELLS = [w["name"] for w in BENCH["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 H100 = {"match": "H100", "tf32": 495e12, "bytes_per_s": 3.35e12}
+CPU = torch.device("cpu")
+
+
+def check_benchmark(bench: dict) -> None:
+    assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert bench["command"][:2] == ["python3", "kubench/run.py"] and bench["paths"] == ["kubench"]
+    assert 1 <= bench["run_seconds"] <= 51
+    e2e = {m["name"] for m in bench["end_to_end"]}
+    assert "setup_s" in e2e
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+    for m in bench["end_to_end"]:
+        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
+        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    for m in bench["per_layer"]:
+        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
+        assert m["moves"] in e2e and 1 <= len(m["layer"]) <= 200
+    for c in bench["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
+        assert c["file"].startswith("kubench/") and len(c["why"]) <= 200
+    for w in bench["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and len(w["why"]) <= 200
+    assert len(json.dumps(bench)) < 64 * 1024
 
 
 def test_benchmark_json_keys_names_and_sizes():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
-                          "end_to_end", "per_layer"}
-    assert BENCH["command"][:2] == ["python3", "kubench/run.py"] and BENCH["paths"] == ["kubench"]
-    assert 1 <= BENCH["run_seconds"] <= 51
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
-    assert "setup_s" in e2e
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
-        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for m in BENCH["end_to_end"]:
-        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
-    for m in BENCH["per_layer"]:
-        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["moves"] in e2e and 1 <= len(m["layer"]) <= 200
-    for c in BENCH["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
-        assert c["file"].startswith("kubench/") and len(c["why"]) <= 200
-    for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
-        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and len(w["why"]) <= 200
-    assert len(json.dumps(BENCH)) < 64 * 1024
+    check_benchmark(BENCH)
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
-def test_every_cell_resolves_by_name(cell):
-    c = spec.load_cell(cell, BENCH)
-    assert c.config["name"] == next(w["config"] for w in BENCH["workloads"] if w["name"] == cell)
+def check_resolves(bench: dict, cell: str, root=spec.ROOT) -> None:
+    """The cell's files, found by name, and at least one limit."""
+    c = spec.load_cell(cell, bench, root)
+    assert c.config["name"] == next(w["config"] for w in bench["workloads"] if w["name"] == cell)
     assert hasattr(c.driver(), "Driver")
-    assert callable(spec.generator(c.traffic["kind"]).make)
+    assert callable(spec.generator(c.traffic["kind"], c.home).make)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:
         assert callable(spec.reader(m["name"]))
-    assert set(c.config["limits"]) >= {"loss_gap", "delta_gap"}
+    assert c.config["limits"]
+
+
+def check_limits(bench: dict, cell: str, root=spec.ROOT) -> None:
+    """Every number ``Driver.check`` returns, in a run at the cell's
+    ``"small"`` size on the CPU, has a limit in its configuration."""
+    c = spec.load_cell(cell, bench, root, small=True)
+    seed = 2**31 + 9
+    driver = c.driver().Driver(torch, c.config, c.traffic, seed, CPU, False)
+    values, _ = driver.check(driver.job(tf.job_seed(seed, 0)))
+    assert values and set(values) <= set(c.config["limits"]), (values, c.config["limits"])
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_resolves_by_name(cell):
+    check_resolves(BENCH, cell)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_number_checked_has_its_limit(cell):
+    check_limits(BENCH, cell)
+
+
+def file_less_small(path) -> dict:
+    data = json.loads(path.read_text())
+    data.pop("small", None)
+    return data
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_run_loads_the_files_less_small(cell):
+    """What a run drives: the files' contents, without the test preset."""
+    c = spec.load_cell(cell, BENCH)
+    w = next(w for w in BENCH["workloads"] if w["name"] == cell)
+    config = next(x for x in BENCH["configs"] if x["name"] == w["config"])
+    assert c.config == file_less_small(spec.ROOT / config["file"])
+    assert c.traffic == file_less_small(spec.BENCH / "traffic" / f"{w['traffic']}.json")
+    assert "small" not in c.config and "small" not in c.traffic
+
+
+def test_the_cd_mix_is_as_it_was():
+    traffic = spec.load_cell("rbm_mnist.cd1", BENCH).traffic
+    assert {k: traffic[k] for k in ("kind", "rows", "density", "hps")} == {
+        "kind": "bernoulli_rows", "rows": 60032, "density": 0.13, "hps": {"k": 1}}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_small_puts_the_presets_over_the_files(cell):
+    c, s = spec.load_cell(cell, BENCH), spec.load_cell(cell, BENCH, small=True)
+    w = next(w for w in BENCH["workloads"] if w["name"] == cell)
+    config = next(x for x in BENCH["configs"] if x["name"] == w["config"])
+    raw_config = json.loads((spec.ROOT / config["file"]).read_text())
+    raw_traffic = json.loads((spec.BENCH / "traffic" / f"{w['traffic']}.json").read_text())
+    assert s.config == {**c.config, **raw_config.get("small", {})} and "small" not in s.config
+    assert s.traffic == {**c.traffic, **raw_traffic.get("small", {})} and "small" not in s.traffic
+    if w["traffic"] == "cd1":              # the CD configurations run their widths
+        assert s.config == c.config and s.traffic == dict(c.traffic, rows=130)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]])
@@ -155,6 +222,39 @@ def test_trace_readers_on_a_made_up_trace(tmp_path):
     # A launch the trace does not show: no roofline rather than a wrong one.
     run.jobs[0].launches.append(dict(launch))
     assert spec.reader("roofline.cd_cluster")(run) is None and run.notes
+
+
+def traced_run(tmp_path, jobs, peaks) -> Run:
+    path = tmp_path / "t.json"
+    write_trace(path)
+    return Run("rbm_mnist.cd1", jobs, 9.0, 1e-3, peaks, "H100, 700.00 W", tr.read(path))
+
+
+def test_mfu_of_tf32_jobs_is_the_one_peak_formula(tmp_path):
+    flops = [60_243_312_640, 601_000_000_000, 120_064_000_000, 7]
+    run = traced_run(tmp_path, [Job(seed=i, samples=1, flops=f, launches=[])
+                                for i, f in enumerate(flops)], H100)
+    assert spec.reader("mfu")(run) == 100.0 * sum(flops) / (run.window_s * H100["tf32"])
+
+
+def test_mfu_of_bf16_jobs_reads_at_the_bf16_peak(tmp_path):
+    peaks = card.peaks("NVIDIA H100 80GB HBM3")
+    assert peaks["bf16"] == 989e12
+    jobs = [Job(seed=i, samples=1, flops=10**12, launches=[], peak="bf16") for i in range(3)]
+    run = traced_run(tmp_path, jobs, peaks)
+    assert spec.reader("mfu")(run) == pytest.approx(100 * 3e12 / (1e-3 * 989e12), rel=1e-12)
+    jobs.append(Job(seed=3, samples=1, flops=495 * 10**9, launches=[]))   # a tf32 job
+    assert spec.reader("mfu")(run) == pytest.approx(100 * (3e12 / 989e12 + 495e9 / 495e12) / 1e-3,
+                                                    rel=1e-12)
+
+
+@pytest.mark.parametrize("peak", ["fp8", "bytes_per_s", "match"])
+def test_mfu_of_a_job_at_an_unknown_peak_reads_none(tmp_path, peak):
+    jobs = [Job(seed=0, samples=1, flops=10**12, launches=[]),
+            Job(seed=1, samples=1, flops=10**12, launches=[], peak=peak)]
+    run = traced_run(tmp_path, jobs, card.peaks("NVIDIA H100 80GB HBM3"))
+    assert spec.reader("mfu")(run) is None
+    assert any("mfu" in n and peak in n for n in run.notes)
 
 
 @pytest.mark.cuda

@@ -22,22 +22,32 @@ def loaded_after(code: str) -> set:
     return set(json.loads(out.stdout.strip().splitlines()[-1]))
 
 
-def test_a_run_loads_neither_jax_nor_ku():
+def check_runs_load_neither_jax_nor_ku(root=spec.ROOT) -> set:
+    """Runs every cell of the BENCHMARK.json at ``root`` on the CPU at its
+    ``"small"`` size, correct, and reads each metric's reader, in one fresh
+    process; returns the top-level modules it then holds."""
     code = f"""
 import sys, time, torch
+from pathlib import Path
 sys.path.insert(0, {str(spec.ROOT)!r})
-from kubench.harness import main, spec, traffic
-small = {{"kind": "bernoulli_rows", "rows": 130, "density": 0.13, "hps": {{}}}}
-for cell in [w["name"] for w in spec.load_benchmark()["workloads"]]:
+from kubench.harness import main, spec
+root = Path({str(root)!r})
+bench = spec.load_benchmark(root)
+for cell in [w["name"] for w in bench["workloads"]]:
     r = main.run_cell(cell, 7, 0.05, False, time.perf_counter(), device=torch.device("cpu"),
-                      traffic=small)
+                      small=True, root=root)
     assert r["correct"], r
-for m in spec.load_benchmark()["end_to_end"] + spec.load_benchmark()["per_layer"]:
+for m in bench["end_to_end"] + bench["per_layer"]:
     spec.reader(m["name"])
 import kubench.calibrate
 """
     loaded = loaded_after(code)
-    assert "ku_torch" in loaded and not loaded & set(FORBIDDEN)
+    assert not loaded & set(FORBIDDEN)
+    return loaded
+
+
+def test_a_run_loads_neither_jax_nor_ku():
+    assert "ku_torch" in check_runs_load_neither_jax_nor_ku()
 
 
 def test_the_reference_loads_nothing_of_the_port():
